@@ -110,6 +110,31 @@ def bound(flops: float, nbytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def measure_line(torch, line, kernel, plain, library, flops, nbytes):
+    """Add the kernel's, the plain version's and the library call's times
+    (zero-argument callables; ``library`` may be None) and the bound."""
+    b_ms, b_by = bound(flops, nbytes)
+    line.update(ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain),
+                library_ms=None if library is None else time_ms(torch, library),
+                bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
+    line["share_of_bound"] = b_ms / line["ms"]
+
+
+def held(torch, name, shape, got, want, tol, **extra):
+    """Hold ``got`` against ``want`` (relative Frobenius error, in f32 or
+    c64); the kernels-phase line of one comparison."""
+    torch.cuda.synchronize()
+    if not got.is_complex():
+        got, want = got.float(), want.float()
+    err = (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
+    line = {"phase": "kernels", "kernel": name, "shape": shape,
+            "rel_err": err, "max_abs_err": (got - want).abs().max().item(),
+            "tol": tol, **extra}
+    check(math.isfinite(err) and err <= tol,
+          f"{name} {shape} {extra}: rel err {err} > {tol}")
+    return line
+
+
 def phase_kernels(torch):
     from repro_torch.kernels import gram as KG
     from repro_torch.kernels import matvec as KM
@@ -148,12 +173,8 @@ def phase_kernels(torch):
     summary = {}
 
     def measure(name, line, kernel, plain, library, flops, nbytes):
-        b_ms, b_by = bound(flops, nbytes)
-        line.update(ms=time_ms(torch, lambda: kernel(None)),
-                    plain_ms=time_ms(torch, lambda: plain(None)),
-                    library_ms=time_ms(torch, library),
-                    bound_ms=b_ms, bound_by=b_by)
-        line["share_of_bound"] = b_ms / line["ms"]
+        measure_line(torch, line, lambda: kernel(None), lambda: plain(None),
+                     library, flops, nbytes)
         summary.setdefault(name, line)
 
     # -- gram: G = A^T A --------------------------------------------------
@@ -209,6 +230,86 @@ def phase_kernels(torch):
                     2 * m * k * n, 4 * (m * k + k * n + m * n))
         emit(line)
     return summary
+
+
+def phase_wrappers(torch):
+    """``gram_complex``, ``planar_matmul`` and the three zip-up sites in c64
+    at the 8x8 main path's shapes.  Each wrapper on the card is held against
+    the same function built from its kernels' plain versions; each zip-up
+    site in its kernel form against its dense (einsum) form."""
+    from repro_torch.kernels import gram as KG
+    from repro_torch.kernels import matvec as KM
+    from repro_torch.kernels import tiled_matmul as KT
+    from repro_torch.kernels import zipup_block as Z
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+
+    def crandn(*shape):
+        re, im = (torch.randn(shape, generator=gen, device="cuda")
+                  for _ in range(2))
+        return torch.complex(re, im)
+
+    # -- gram_complex: G = A^H A (two real Grams + the tiled cross term) ----
+    m, n = 82944, 72
+    a = crandn(m, n)
+
+    def gram_complex_plain():
+        ar, ai = a.real.contiguous(), a.imag.contiguous()
+        x = KT.tiled_matmul_plain(ar.T, ai)
+        return torch.complex(KG.gram_plain(ar) + KG.gram_plain(ai), x - x.T)
+
+    line = held(torch, "gram_complex", [m, n], KG.gram_complex(a),
+                gram_complex_plain(), TOL_F32, dtype="complex64")
+    measure_line(torch, line, lambda: KG.gram_complex(a), gram_complex_plain,
+                 lambda: torch.matmul(a.mH, a), 4 * m * n * (n + 1),
+                 8 * (m * n + n * n))
+    emit(line)
+
+    # -- planar_matmul: complex A B as one doubled real tall-apply ----------
+    m, k, n = 82944, 72, 72
+    a, b = crandn(m, k), crandn(k, n)
+
+    def planar_plain():
+        a2 = torch.cat([a.real, a.imag], dim=1)
+        b2 = torch.cat([torch.cat([b.real, b.imag], dim=1),
+                        torch.cat([-b.imag, b.real], dim=1)], dim=0)
+        c2 = KM.tall_apply_plain(a2, b2)
+        return torch.complex(c2[:, :n], c2[:, n:])
+
+    line = held(torch, "planar_matmul", [m, k, n], KM.planar_matmul(a, b),
+                planar_plain(), TOL_F32, dtype="complex64")
+    measure_line(torch, line, lambda: KM.planar_matmul(a, b), planar_plain,
+                 lambda: torch.matmul(a, b), 8 * m * k * n,
+                 8 * (m * k + k * n + m * n))
+    emit(line)
+
+    # -- zip-up sites at D = 6, chi = 64 (interior columns of the 8x8 path)
+    sites = [
+        # S0 (1,6,6) x O0 (6,1,6,6): (6 x 6) @ (6 x 36)
+        ("zipup_first_onelayer", (crandn(1, 6, 6), crandn(6, 1, 6, 6)),
+         Z._first_onelayer_kernel, Z._first_onelayer_dense,
+         "bfg,fchk->bchgk", 8 * 6 * 6 * 36),
+        # S0 (1,6,6,36) x bra (2,6,1,6,6) x ket: (216 x 6) @ (6 x 72), then
+        # (1296 x 12) @ (12 x 36)
+        ("zipup_first_twolayer",
+         (crandn(1, 6, 6, 36), crandn(2, 6, 1, 6, 6), crandn(2, 6, 1, 6, 6)),
+         Z._first_twolayer_kernel, Z._first_twolayer_dense,
+         "bfFg,pfchk,pFCHK->bcChHgkK", 8 * (216 * 6 * 72 + 1296 * 12 * 36)),
+        # first-row D = 6 bra/ket sites (2,1,6,6,6): (216 x 2) @ (2 x 216)
+        ("pair_merge", (crandn(2, 1, 6, 6, 6), crandn(2, 1, 6, 6, 6)),
+         Z._pair_merge_kernel, Z._pair_merge_dense,
+         "puldr,pULDR->lLdDrR", 8 * 216 * 2 * 216),
+    ]
+    for name, args, kern, dense, expr, flops in sites:
+        want = dense(*args)
+        line = held(torch, name, [list(t.shape) for t in args], kern(*args),
+                    want, TOL_F32, dtype="complex64", form="kernel vs dense")
+        measure_line(torch, line, lambda k=kern, a=args: k(*a),
+                     lambda d=dense, a=args: d(*a),
+                     lambda e=expr, a=args: torch.einsum(e, *a), flops,
+                     8 * (sum(t.numel() for t in args) + want.numel()))
+        emit(line)
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +485,13 @@ def phase_profile(torch, state):
         wall = time.perf_counter() - t0
     finally:
         dispatch.set_kernel_backend(prev)
+    emit({"phase": "profile", "what": "norm_squared, complex64, kernel mode",
+          **device_profile(prof, wall)})
+
+
+def device_profile(prof, wall: float):
+    """Device time by kernel from a torch.profiler run over ``wall``
+    seconds, and the device's busy share of that wall time."""
     rows = []
     for evt in prof.key_averages():
         if not str(evt.device_type).endswith("CUDA"):
@@ -394,11 +502,10 @@ def phase_profile(torch, state):
         rows.append((us, evt.key, evt.count))
     rows.sort(reverse=True)
     device_s = sum(r[0] for r in rows) / 1e6
-    emit({"phase": "profile", "what": "norm_squared, complex64, kernel mode",
-          "wall_s": wall, "device_s": device_s,
-          "device_busy_share": device_s / wall if wall > 0 else None,
-          "top": [{"name": k[:100], "calls": c, "device_ms": us / 1e3}
-                  for us, k, c in rows[:15]]})
+    return {"wall_s": wall, "device_s": device_s,
+            "device_busy_share": device_s / wall if wall > 0 else None,
+            "top": [{"name": k[:100], "calls": c, "device_ms": us / 1e3}
+                    for us, k, c in rows[:15]]}
 
 
 # ---------------------------------------------------------------------------
@@ -485,6 +592,7 @@ def main() -> int:
 
     try:
         summary = phase_kernels(torch)
+        phase_wrappers(torch)
         phase_small_reference(torch, np)
         launches, state = phase_main_path(torch, np)
         phase_profile(torch, state)
