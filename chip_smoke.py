@@ -9,10 +9,15 @@ sm_90a), holds each kernel against its plain PyTorch version, drives the
 port's main path — an 8x8 PEPS built by QR-update gates to bond D=6, its
 two-layer IBMPS norm and cached-environment TFI energy at chi=64, and four
 one-layer amplitudes — in complex64 through the kernels, then again through
-the dense torch path and at complex128, and compares.  Each phase prints
-one JSON line; the last line is ``{"ok": true, "device": {...}}``.  Any
-failed check exits non-zero before that line.  Without a CUDA device, or
-outside a checkout, it exits non-zero and prints no result.
+the dense torch path and at complex128, and compares.  Then it serves
+Zamba2-2.7B at full width (random bf16 weights from ``SEED``): a 4 x 2,048
+token prefill through the flash-attention and SSD-scan kernels, 64 greedy
+decode steps, the same prefill through the plain versions, a
+prefill-then-decode continuation check, and an f32 kernel-vs-plain check
+at reduced depth.  Each phase prints JSON lines; the last line is
+``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
+that line.  Without a CUDA device, or outside a checkout, it exits non-zero
+and prints no result.
 """
 from __future__ import annotations
 
@@ -39,9 +44,18 @@ N_AMPLITUDES = 4
 # small a network to zero; at 0.3 the norm stays O(1).
 THETA_MAX = 0.3
 
+# Zamba2-2.7B serving (lm_serve phase)
+LM_ARCH = "zamba2-2.7b"
+LM_BATCH = 4
+LM_PROMPT = 2048
+LM_DECODE = 64
+LM_F32_GROUPS = 2        # f32 kernel-vs-plain check: full width, 2 groups
+LM_F32_PROMPT = 512
+
 # Published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, and HBM3 bandwidth.
+# cores, bf16 on the tensor cores (dense), and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 TOL_F32 = 1e-5           # kernel vs plain, relative Frobenius, f32
@@ -56,6 +70,22 @@ TOL_SMALL = 1e-4         # 3x3 c64 kernel path vs exact statevector
 # kernels themselves are held to TOL_F32 and the small grid to TOL_SMALL.
 TOL_FULL = 5e-2          # 8x8: c64 kernel vs c64 dense (norm, energy, amps)
 TOL_ANCHOR = 1e-1        # 8x8: c64 kernel vs c128 dense (norm, energy)
+# bf16 outputs of flash_attention / ssd_scan against their plain versions
+# on the same bf16 inputs: both round the same f32 result to bf16, and a
+# sum taken in another order flips the last bit of a few entries (2^-8).
+TOL_BF16_OUT = 4e-3
+# lm_serve, kernel vs plain prefill logits in f32: a rounding comparison.
+TOL_LM_F32 = 1e-4
+# bf16 gaps of the served model: kernel vs plain prefill logits, and
+# prefill + decode vs the longer prefill.  Every layer rounds its
+# activations to bf16, and the random-weight 54-layer stack amplifies the
+# one-ulp flips of single entries to about 3e-2 of the logits (measured
+# 3.1e-2 and 3.2e-2 on the H100, PERF.md): the bound is twice that.
+TOL_LM_BF16 = 6e-2
+# prefill(t0..t2046) + decode(t2047) vs prefill(t0..t2047) in f32 at full
+# width and depth: allclose with rtol = atol = 2e-2, the contract of
+# tests/test_models_smoke.py
+TOL_DECODE = 2e-2
 
 
 class CheckFailed(Exception):
@@ -104,8 +134,8 @@ def time_ms(torch, fn, reps: int = 7, inner: int = 10) -> float:
     return statistics.median(vals)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -312,6 +342,102 @@ def phase_wrappers(torch):
         emit(line)
 
 
+def ssd_flops_bytes(bh, length, p, n, chunk, itemsize, state):
+    """Operations the SSD scan needs (the causal half of each chunk's score
+    tile) and bytes it must move (x, B, C read, y written, a in f32, the
+    final f32 state when returned)."""
+    flops = 0
+    for t0 in range(0, length, chunk):
+        t = min(chunk, length - t0)
+        flops += t * (t + 1) * (n + p) + 4 * t * n * p
+    nbytes = length * (itemsize * (2 * p + 2 * n) + 4) + (4 * n * p if state
+                                                          else 0)
+    return bh * flops, bh * nbytes
+
+
+def phase_lm_kernels(torch):
+    """``flash_attention`` and ``ssd_scan`` against their plain versions,
+    at the served Zamba2 shapes and at small ragged ones."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import ssd_scan as KS
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen,
+                                    device="cuda")).to(dtype)
+
+    summary = {}
+    # -- flash_attention: the served shape, in the model's (B, S, H, D)
+    #    storage, then GQA with a ragged S
+    b, h, s, d = LM_BATCH, 32, LM_PROMPT, 80
+    for dtype, main in ((torch.bfloat16, True), (torch.float32, False)):
+        q, k, v = (randn(b, s, h, d, dtype=dtype).transpose(1, 2)
+                   for _ in range(3))
+        kern = lambda q=q, k=k, v=v: KF.flash_attention(q, k, v, causal=True)
+        plain = lambda q=q, k=k, v=v: KF.flash_attention_plain(q, k, v,
+                                                               causal=True)
+        line = held(torch, "flash_attention", [b, h, s, d], kern(), plain(),
+                    TOL_BF16_OUT if main else TOL_F32,
+                    dtype=str(dtype).replace("torch.", ""), causal=True)
+        if main:
+            flops = 2 * s * (s + 1) * d * b * h
+            nbytes = 2 * 4 * b * h * s * d
+            measure_line(torch, line, kern, plain,
+                         lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                             q, k, v, is_causal=True), flops, nbytes)
+            line["bound_ms_bf16_tensor_cores"] = bound(
+                flops, nbytes, PEAK_BF16_TC_FLOPS)[0]
+            summary["flash_attention"] = line
+        emit(line)
+    for causal in (False, True):
+        q = randn(1, 4, 300, 80)
+        k, v = randn(1, 2, 300, 80), randn(1, 2, 300, 80)
+        emit(held(torch, "flash_attention", [1, 4, 2, 300, 80],
+                  KF.flash_attention(q, k, v, causal=causal),
+                  KF.flash_attention_plain(q, k, v, causal=causal), TOL_F32,
+                  dtype="float32", causal=causal))
+
+    # -- ssd_scan: the served shape (B * H = 4 * 80 series), then a ragged
+    #    last chunk; the final state is held in every case
+    def ssd_inputs(bh, length, p, n, dtype):
+        return (randn(bh, length, p, dtype=dtype),
+                randn(bh, length, n, dtype=dtype, scale=0.5),
+                randn(bh, length, n, dtype=dtype, scale=0.5),
+                -0.1 * randn(bh, length).abs())
+
+    for bh, length, dtype, main in ((LM_BATCH * 80, LM_PROMPT, torch.bfloat16,
+                                     True),
+                                    (LM_BATCH * 80, LM_PROMPT, torch.float32,
+                                     False),
+                                    (8, 1000, torch.float32, False)):
+        p, n, chunk = 64, 64, 128
+        args = ssd_inputs(bh, length, p, n, dtype)
+        kern = lambda a=args: KS.ssd_scan(*a, chunk=chunk, return_state=True)
+        plain = lambda a=args: KS.ssd_scan_plain(*a, chunk=chunk,
+                                                 return_state=True)
+        (y, st), (y0, st0) = kern(), plain()
+        line = held(torch, "ssd_scan", [bh, length, p, n], y, y0,
+                    TOL_BF16_OUT if dtype == torch.bfloat16 else TOL_F32,
+                    dtype=str(dtype).replace("torch.", ""), chunk=chunk)
+        st_line = held(torch, "ssd_scan final state", [bh, n, p], st, st0,
+                       TOL_F32)
+        line["state_rel_err"] = st_line["rel_err"]
+        if main:
+            flops, nbytes = ssd_flops_bytes(bh, length, p, n, chunk,
+                                            dtype.itemsize, True)
+            measure_line(torch, line, kern, plain, None, flops, nbytes)
+            line["library_note"] = ("no single PyTorch call computes the SSD "
+                                    "scan")
+            line["bound_ms_bf16_tensor_cores"] = bound(
+                flops, nbytes, PEAK_BF16_TC_FLOPS)[0]
+            summary["ssd_scan"] = line
+        emit(line)
+    return summary
+
+
 # ---------------------------------------------------------------------------
 # The main path
 # ---------------------------------------------------------------------------
@@ -509,6 +635,206 @@ def device_profile(prof, wall: float):
 
 
 # ---------------------------------------------------------------------------
+# Serving Zamba2-2.7B through the LM kernels
+# ---------------------------------------------------------------------------
+
+def logits_gap(torch, got, want):
+    """(relative Frobenius gap, allclose excess): the excess is
+    max(|got - want| - (atol + rtol |want|)) at rtol = atol = TOL_DECODE,
+    <= 0 when ``np.testing.assert_allclose`` would pass."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    gap = (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
+    excess = (diff - TOL_DECODE * (1 + want.abs())).max().item()
+    return gap, excess
+
+
+def prefill_in(torch, T, mode, params, cfg, tokens, max_seq,
+               cache_dtype=None):
+    """One prefill with every site in ``mode``; (logits, cache, seconds).
+    The cache is bf16 unless ``cache_dtype`` says otherwise."""
+    from repro_torch.kernels import dispatch
+    prev = dispatch.set_kernel_backend(mode)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(params, cfg, tokens, max_seq,
+                                  cache_dtype=cache_dtype or torch.bfloat16)
+        torch.cuda.synchronize()
+        return logits, cache, time.perf_counter() - t0
+    finally:
+        dispatch.set_kernel_backend(prev)
+
+
+def phase_lm_serve(torch, np):
+    """Zamba2-2.7B at full width with bf16 weights drawn on the card from
+    SEED: prefill 4 x 2,048 tokens through the kernels, decode 64 greedy
+    tokens, and check (a) finite logits, (b) kernel vs plain prefill logits
+    (bf16 at full depth, f32 at reduced depth), (c) prefill + decode
+    against the longer prefill (bf16, and f32 at full depth).  Returns the
+    kernels' launch counts of the served prefill and decode."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build
+
+    cfg = get(LM_ARCH)
+    n_groups = cfg.n_layers // cfg.hybrid_group
+    bundle = build(cfg)
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(LM_BATCH, LM_PROMPT))).cuda()
+    max_seq = LM_PROMPT + LM_DECODE
+    out = {"phase": "lm_serve", "arch": LM_ARCH, "batch": LM_BATCH,
+           "prompt": LM_PROMPT, "decode_tokens": LM_DECODE}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = bundle.init(SEED)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        out["param_bytes"] = sum(t.numel() * t.element_size()
+                                 for _, t in tree_leaves(params))
+
+        # the served run: every count starts at 0 and is read right after
+        dispatch.reset_dispatch_stats()
+        flash_attention.launches = 0
+        ssd_scan.launches = 0
+        logits, cache, out["prefill_s"] = prefill_in(
+            torch, T, "kernel", params, cfg, tokens, max_seq)
+        prefill_launches = {"flash_attention": flash_attention.launches,
+                            "ssd_scan": ssd_scan.launches}
+        finite = torch.isfinite(logits).all()
+        tok = logits.argmax(dim=-1, keepdim=True)
+        generated = [tok]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LM_DECODE):
+            step_logits, cache = bundle.serve_step(params, cache, tok)
+            finite &= torch.isfinite(step_logits).all()
+            tok = step_logits.argmax(dim=-1, keepdim=True)
+            generated.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        counters = dispatch.dispatch_stats()
+        launches = {"flash_attention": flash_attention.launches,
+                    "ssd_scan": ssd_scan.launches}
+        out.update(
+            decode_ms_per_token=decode_s / LM_DECODE * 1e3,
+            decode_tokens_per_s=LM_BATCH * LM_DECODE / decode_s,
+            prefill_tokens_per_s=LM_BATCH * LM_PROMPT / out["prefill_s"],
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            prefill_launches=prefill_launches, launches=launches,
+            counters={k: v for k, v in counters.items()
+                      if k.endswith(("_attention_calls", "_ssd_calls"))},
+            generated=torch.cat(generated, dim=1)[:, :8].tolist())
+        check(bool(finite), "lm_serve: non-finite logits in prefill or decode")
+        check(prefill_launches == {"flash_attention": n_groups,
+                                   "ssd_scan": n_groups * (cfg.hybrid_group - 1)},
+              f"lm_serve: launches per prefill {prefill_launches}")
+        check(counters["kernel_attention_calls"] == n_groups
+              and counters["kernel_ssd_calls"] == n_groups * (cfg.hybrid_group - 1)
+              and counters["dense_attention_calls"] == 0
+              and counters["dense_ssd_calls"] == 0,
+              f"lm_serve: dispatch counters {counters}")
+
+        # the same prefill again (warm), and through the plain versions
+        logits2, _, out["prefill_warm_s"] = prefill_in(
+            torch, T, "kernel", params, cfg, tokens, max_seq)
+        out["prefill_repeats_bitwise"] = bool(torch.equal(logits, logits2))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, wall = prefill_in(torch, T, "kernel", params, cfg, tokens,
+                                    max_seq)
+        emit({"phase": "lm_profile", "what": "one kernel-mode prefill, "
+              f"{LM_BATCH} x {LM_PROMPT} tokens, bf16",
+              **device_profile(prof, wall)})
+        step_cache = {k: v.clone() if torch.is_tensor(v) else v
+                      for k, v in cache.items()}
+        step_cache["index"] = LM_PROMPT
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            bundle.serve_step(params, step_cache, tokens[:, -1:])
+            torch.cuda.synchronize()
+        emit({"phase": "lm_profile", "what": f"one decode step, batch "
+              f"{LM_BATCH}, bf16", **device_profile(
+                  prof, time.perf_counter() - t0)})
+        del step_cache
+        dense, _, out["prefill_dense_s"] = prefill_in(
+            torch, T, "dense", params, cfg, tokens, max_seq)
+        out["bf16_kernel_vs_dense"], _ = logits_gap(torch, logits, dense)
+        del logits2, dense
+
+        # (c) prefill t0..t2046, decode t2047, against the prefill of all
+        out["bf16_decode_vs_prefill"] = decode_vs_prefill(
+            torch, T, bundle, params, cfg, tokens, logits)
+        del params, cache
+        torch.cuda.empty_cache()
+
+        # (c) in f32 at full width and depth, where it is a rounding
+        # comparison, and (b) in f32 at LM_F32_GROUPS groups and a shorter
+        # prompt
+        cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                    act_dtype=torch.float32)
+        bundle32 = build(cfg32)
+        params32 = bundle32.init(SEED + 1)
+        full32, _, out["f32_prefill_s"] = prefill_in(
+            torch, T, "kernel", params32, cfg32, tokens, LM_PROMPT,
+            torch.float32)
+        out["f32_decode_vs_prefill"] = decode_vs_prefill(
+            torch, T, bundle32, params32, cfg32, tokens, full32, torch.float32)
+        del params32, full32
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(
+            cfg32, n_layers=LM_F32_GROUPS * cfg.hybrid_group)
+        params32 = build(cfg32).init(SEED + 2)
+        short_tokens = tokens[:, :LM_F32_PROMPT]
+        kern32, kcache, _ = prefill_in(torch, T, "kernel", params32, cfg32,
+                                       short_tokens, LM_F32_PROMPT,
+                                       torch.float32)
+        dense32, dcache, _ = prefill_in(torch, T, "dense", params32, cfg32,
+                                        short_tokens, LM_F32_PROMPT,
+                                        torch.float32)
+        out["f32_kernel_vs_dense"], _ = logits_gap(torch, kern32, dense32)
+        out["f32_cache_kernel_vs_dense"] = {
+            key: logits_gap(torch, kcache[key], dcache[key])[0]
+            for key in ("k", "v", "ssm_h", "ssm_conv")}
+        del params32, kcache, dcache
+        torch.cuda.empty_cache()
+    emit(out)
+    check(out["f32_kernel_vs_dense"] <= TOL_LM_F32,
+          f"lm_serve: f32 kernel vs plain logits {out['f32_kernel_vs_dense']}")
+    check(out["bf16_kernel_vs_dense"] <= TOL_LM_BF16,
+          f"lm_serve: bf16 kernel vs plain logits {out['bf16_kernel_vs_dense']}")
+    check(out["f32_decode_vs_prefill"]["allclose_excess"] <= 0,
+          f"lm_serve: f32 prefill + decode vs prefill "
+          f"{out['f32_decode_vs_prefill']}")
+    check(out["bf16_decode_vs_prefill"]["rel"] <= TOL_LM_BF16,
+          f"lm_serve: bf16 prefill + decode vs prefill "
+          f"{out['bf16_decode_vs_prefill']}")
+    return launches
+
+
+def decode_vs_prefill(torch, T, bundle, params, cfg, tokens, want,
+                      cache_dtype=None):
+    """Check (c): prefill all but the last token, decode the last one, and
+    compare with ``want``, the logits of the prefill of all the tokens."""
+    _, cache, _ = prefill_in(torch, T, "kernel", params, cfg, tokens[:, :-1],
+                             tokens.shape[1], cache_dtype)
+    got, _ = bundle.serve_step(params, cache, tokens[:, -1:])
+    rel_gap, excess = logits_gap(torch, got, want)
+    return {"rel": rel_gap, "allclose_excess": excess}
+
+
+# ---------------------------------------------------------------------------
 # A small input against the exact statevector
 # ---------------------------------------------------------------------------
 
@@ -593,9 +919,13 @@ def main() -> int:
     try:
         summary = phase_kernels(torch)
         phase_wrappers(torch)
+        summary.update(phase_lm_kernels(torch))
         phase_small_reference(torch, np)
         launches, state = phase_main_path(torch, np)
         phase_profile(torch, state)
+        del state
+        torch.cuda.empty_cache()
+        launches.update(phase_lm_serve(torch, np))
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
@@ -605,7 +935,12 @@ def main() -> int:
                "tall_apply": ("src/repro_torch/kernels/csrc/tall_apply.cu",
                               "src/repro/kernels/matvec.py:34"),
                "tiled_matmul": ("src/repro_torch/kernels/csrc/tiled_matmul.cu",
-                                "src/repro/kernels/tiled_matmul.py:26")}
+                                "src/repro/kernels/tiled_matmul.py:26"),
+               "flash_attention": (
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:24"),
+               "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                            "src/repro/kernels/ssd_scan.py:23")}
     kernels = []
     for name, (source, replaces) in sources.items():
         s = summary[name]

@@ -1,13 +1,16 @@
-"""Carry PEPS state across packages as numpy arrays.
+"""Carry PEPS state, LM parameters and decode caches across packages as
+numpy arrays.
 
 ``peps_from_numpy`` takes the site tensors of a PEPS as nested lists of
 numpy arrays (for the JAX package's PEPS: ``np.asarray`` of each site) and
 builds the port's :class:`~repro_torch.core.peps.PEPS`; ``peps_to_numpy``
-goes the other way.
+goes the other way.  ``lm_params_from_numpy`` / ``lm_params_to_numpy`` and
+``cache_from_numpy`` / ``cache_to_numpy`` do the same for an LM parameter
+tree and a decode cache: nested dicts in the reference's keys and shapes.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -30,3 +33,51 @@ def peps_to_numpy(state: PEPS) -> Tuple[List[List[np.ndarray]], float]:
     """(sites as nested lists of numpy arrays, log_scale as a float)."""
     sites = [[t.detach().cpu().numpy() for t in row] for row in state.sites]
     return sites, float(state.log_scale)
+
+
+def _tensor(arr, dtype, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":    # numpy has no bf16: widen, exactly
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=dtype or torch.bfloat16)
+    return torch.tensor(arr, dtype=dtype, device=device)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A copy: a CPU tensor's ``.numpy()`` shares its memory, and decode
+    updates the cache in place."""
+    t = t.detach().cpu()
+    return np.array((t.float() if t.dtype == torch.bfloat16 else t).numpy())
+
+
+def lm_params_from_numpy(tree, *, dtype=None, device=None) -> Dict[str, Any]:
+    """Port parameter tree from nested dicts of numpy arrays (for the JAX
+    package: ``np.asarray`` of each leaf; ml_dtypes bfloat16 arrays are
+    read exactly).  ``dtype=None`` keeps each array's dtype."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, dtype=dtype, device=device)
+                for k, v in tree.items()}
+    return _tensor(tree, dtype, device)
+
+
+def lm_params_to_numpy(tree) -> Dict[str, Any]:
+    """Nested dicts of numpy arrays; bfloat16 leaves come back as float32
+    (exactly: numpy has no bfloat16)."""
+    if isinstance(tree, dict):
+        return {k: lm_params_to_numpy(v) for k, v in tree.items()}
+    return _array(tree)
+
+
+def cache_from_numpy(cache, *, device=None) -> Dict[str, Any]:
+    """Port decode cache from the reference's: each array keeps its dtype
+    and ``index`` becomes a Python int."""
+    device = resolve_device(device)
+    return {k: int(np.asarray(v)) if k == "index" else _tensor(v, None, device)
+            for k, v in cache.items()}
+
+
+def cache_to_numpy(cache) -> Dict[str, Any]:
+    """Numpy arrays (bfloat16 as float32) and ``index`` as an int32 scalar."""
+    return {k: np.asarray(v, np.int32) if k == "index" else _array(v)
+            for k, v in cache.items()}

@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gram.cu", "tall_apply.cu", "tiled_matmul.cu")
+SOURCES = ("gram.cu", "tall_apply.cu", "tiled_matmul.cu", "flash_attention.cu",
+           "ssd_scan.cu")
 HEADERS = ("tile.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -29,11 +30,16 @@ LIB_NAME = "librepro_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "repro_gram_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_tall_apply_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_tall_apply_smem_bytes": (_I,),
     "repro_tiled_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "repro_flash_attention": (_P, _P, _P, _P) + (_I,) * 8 + (_L,) * 12 + (_P,),
+    "repro_flash_attention_smem_bytes": (_I,),
+    "repro_ssd_scan": (_P,) * 6 + (_I,) * 6 + (_L,) * 8 + (_P,),
+    "repro_ssd_scan_smem_bytes": (_I, _I, _I),
 }
 
 # Shared memory one block may use on the H100 (bytes, dynamic).

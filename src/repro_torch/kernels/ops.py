@@ -1,0 +1,46 @@
+"""Dispatch wrappers for the LM substrate's two kernels.
+
+Counterpart of ``repro.kernels.ops`` (``attention`` and ``ssd``).  Each is a
+site of :mod:`repro_torch.kernels.dispatch`: ``attention`` and ``ssd``.
+The kernel form is the hand-written CUDA kernel (its plain version on a CPU
+tensor), the dense form is the plain version.  Only float32 and bfloat16
+operands reach a kernel (the hard gate); ``auto`` picks the kernel when the
+operand is on CUDA, as the reference picks Pallas on a TPU.  Launches are
+counted as ``kernel_attention_calls`` / ``kernel_ssd_calls``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.ssd_scan import DTYPES, ssd_scan, ssd_scan_plain
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True) -> torch.Tensor:
+    """Attention over (B, Hq, S, D) queries, (B, Hkv, Sk, D) keys/values."""
+    return dispatch.dispatch("attention", q, k, v, causal=causal)
+
+
+def ssd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, a: torch.Tensor,
+        *, chunk: int = 128, return_state: bool = False):
+    """SSD scan over (BH, L, P) x, (BH, L, N) b/c, (BH, L) log-decay a."""
+    return dispatch.dispatch("ssd", x, b, c, a, chunk=chunk,
+                             return_state=return_state)
+
+
+def _supported(*tensors, **_) -> bool:
+    return all(t.dtype in DTYPES for t in tensors[:3])
+
+
+def _on_cuda(q, *_, **__) -> bool:
+    return q.device.type == "cuda"
+
+
+dispatch.register_kernel("attention", kernel=flash_attention,
+                         dense=flash_attention_plain, supported=_supported,
+                         auto=_on_cuda)
+dispatch.register_kernel("ssd", kernel=ssd_scan, dense=ssd_scan_plain,
+                         supported=_supported, auto=_on_cuda)

@@ -11,12 +11,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as KF  # noqa: E402
 from repro_torch.kernels import gram as KG  # noqa: E402
 from repro_torch.kernels import matvec as KM  # noqa: E402
+from repro_torch.kernels import ssd_scan as KS  # noqa: E402
 from repro_torch.kernels import tiled_matmul as KT  # noqa: E402
 
 # kernel vs plain version: the same f32 products summed in another order
 F32_TOL = 1e-5
+# bf16 outputs: both round the same f32 result to bf16; a sum taken in
+# another order can flip the last bit of an entry (2^-8 relative)
+BF16_TOL = 4e-3
 
 
 @pytest.fixture
@@ -92,3 +97,106 @@ def test_gram_complex_on_the_card_is_hermitian_and_matches(cuda):
     want = a.conj().T @ a
     assert _crel(got, want) <= F32_TOL
     assert torch.equal(got.imag, -got.imag.T)
+
+
+# ------------------------------------------------------- flash attention ----
+def _qkv(seed, b, hq, hkv, s, sk, d, dtype, layout):
+    """(B, H, S, D) operands; layout "bshd" gives transposed views of
+    (B, S, H, D) storage, as the model passes them."""
+    def one(i, h, n):
+        if layout == "bshd":
+            return _crand(seed + i, b, n, h, d).to(dtype).transpose(1, 2)
+        return _crand(seed + i, b, h, n, d).to(dtype)
+    return one(0, hq, s), one(1, hkv, sk), one(2, hkv, sk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,sk,d,causal,layout", [
+    (1, 4, 2, 300, 300, 80, True, "bhsd"),     # GQA, ragged S
+    (1, 4, 2, 300, 300, 80, False, "bhsd"),
+    (2, 4, 4, 128, 128, 16, True, "bshd"),     # the smoke model's shape
+    (1, 8, 1, 130, 130, 64, True, "bhsd"),     # MQA
+    (1, 2, 2, 64, 64, 128, True, "bhsd"),      # the largest head dim
+    (1, 2, 2, 100, 75, 32, False, "bhsd"),     # fewer keys than queries
+    (2, 32, 32, 512, 512, 80, True, "bshd"),   # Zamba2 heads, shorter S
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, s, sk, d,
+                                              causal, layout, dtype):
+    q, k, v = _qkv(10, b, hq, hkv, s, sk, d, dtype, layout)
+    before = KF.flash_attention.launches
+    got = KF.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert KF.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = KF.flash_attention_plain(q, k, v, causal=causal)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert _crel(got.float(), want.float()) <= tol
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q = _crand(11, 1, 2, 16, 144)
+    with pytest.raises(ValueError, match="head dimension"):
+        KF.flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="float32"):
+        KF.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="unit stride"):
+        KF.flash_attention(q.transpose(2, 3), q.transpose(2, 3),
+                           q.transpose(2, 3))
+
+
+# -------------------------------------------------------------- ssd scan ----
+def _ssd(seed, bh, length, p, n, dtype):
+    x = _crand(seed, bh, length, p).to(dtype)
+    b = (0.5 * _crand(seed + 1, bh, length, n)).to(dtype)
+    c = (0.5 * _crand(seed + 2, bh, length, n)).to(dtype)
+    a = -0.1 * _crand(seed + 3, bh, length).abs()
+    return x, b, c, a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,length,p,n,chunk", [
+    (4, 1000, 64, 64, 128),    # ragged last chunk at Zamba2's P, N
+    (3, 200, 16, 16, 64),
+    (2, 40, 16, 16, 16),       # the smoke model's chunk
+    (2, 256, 64, 128, 64),     # N = 128
+    (2, 77, 32, 16, 48),       # chunk not a power of two
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_scan_kernel_matches_plain(cuda, bh, length, p, n, chunk, dtype):
+    x, b, c, a = _ssd(20, bh, length, p, n, dtype)
+    before = KS.ssd_scan.launches
+    y, state = KS.ssd_scan(x, b, c, a, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert KS.ssd_scan.launches == before + 1
+    assert y.dtype == dtype and state.dtype == torch.float32
+    y0, state0 = KS.ssd_scan_plain(x, b, c, a, chunk=chunk, return_state=True)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert _crel(y.float(), y0.float()) <= tol
+    assert _crel(state, state0) <= F32_TOL
+    assert torch.equal(KS.ssd_scan(x, b, c, a, chunk=chunk), y)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_reads_strided_operands(cuda):
+    """B and C as (BH, L, N) views of a wider projection, as the model's
+    split makes them."""
+    x, _, _, a = _ssd(30, 2, 300, 64, 64, torch.float32)
+    bc = _crand(31, 2, 300, 160)
+    b, c = bc[..., :64], bc[..., 80:144]
+    got = KS.ssd_scan(x, b, c, a, chunk=128)
+    assert _crel(got, KS.ssd_scan_plain(x, b, c, a, chunk=128)) <= F32_TOL
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda):
+    x, b, c, a = _ssd(40, 2, 64, 64, 128, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        KS.ssd_scan(x, b, c, a, chunk=128)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        KS.ssd_scan(x, b, c, a, chunk=100)
+    with pytest.raises(TypeError, match="float32"):
+        KS.ssd_scan(x, b, c, a.bfloat16(), chunk=64)
