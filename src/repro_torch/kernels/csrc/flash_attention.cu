@@ -3,12 +3,14 @@
 // Replaces: src/repro/kernels/flash_attention.py, _flash_kernel /
 // flash_attention (Pallas, TPU).
 //
-// What bounds it on the H100: causal attention does 2 S^2 D flops per
-// (batch, head) against 2 (S + 2 Sk) D bytes of bf16 operands, hundreds of
-// flops per byte, so arithmetic bounds it: at the served Zamba2 shape
-// (4, 32, 2048, 80) about 8.6e10 flops, 1.28 ms at the 67 TFLOP/s of plain
-// f32 FMA (0.087 ms at the 989 TFLOP/s of bf16 tensor cores, which this
-// kernel does not use yet).
+// What bounds it on the H100: causal attention does S (S + 1) D flops per
+// (batch, head) in each of its two products (the causal half) against
+// 2 (S + 2 Sk) D bytes of bf16 operands, hundreds of flops per byte, so
+// arithmetic bounds it.  Each product counts at the peak for its operands:
+// Q K^T has bf16 operands, which bf16 tensor cores with f32 accumulation
+// multiply exactly (989 TFLOP/s); P V has the f32 operand P (67 TFLOP/s).
+// At the served Zamba2 shape (4, 32, 2048, 80) that is 4.3e10 flops each,
+// 0.043 ms + 0.641 ms = 0.685 ms.  This kernel does both in f32 FMA.
 //
 // Design: the TPU grid's sequential key axis becomes a loop inside the
 // block.  One block of 256 threads (16 x 16) owns one 64-row query tile of

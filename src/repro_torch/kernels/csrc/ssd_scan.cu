@@ -9,11 +9,17 @@
 //   y     = ((C B^T) * L) x + diag(exp(cum)) C h,   L[i][j] = exp(cum_i - cum_j), i >= j
 //   h_new = exp(total) h + (diag(exp(total - cum)) B)^T x
 //
-// What bounds it on the H100: per chunk 2 T^2 N + 2 T^2 P + 2 T N P + 2 T N P
-// flops against T (2 P + 2 N) operand bytes in bf16, about 190 flops per
-// byte at T = 128, N = P = 64: arithmetic bounds it.  At the served Zamba2
-// shape (320 series, L = 2048, N = P = 64) that is about 3.1e10 flops, 0.46 ms
-// at the 67 TFLOP/s of plain f32 FMA.
+// What bounds it on the H100: per chunk, counting the causal half of the
+// score tile, T (T + 1) N flops for C B^T, T (T + 1) P for (C B^T * L) x,
+// 2 T N P for C h and 2 T N P for the state update, against 2 T (2 P + 2 N)
+// bytes of bf16 operands: about 64 flops per byte at T = 128, N = P = 64,
+// above the card's 20 for f32, so arithmetic bounds it.  Each product
+// counts at the peak for its operands: C B^T has bf16 operands, which bf16
+// tensor cores with f32 accumulation multiply exactly (989 TFLOP/s); the
+// other three have an f32 operand (the decayed scores, the state, the decay
+// weights; 67 TFLOP/s).  At the served Zamba2 shape (320 series, L = 2048,
+// N = P = 64) that is 5.4e9 flops in 0.0055 ms and 1.6e10 in 0.241 ms:
+// 0.246 ms.  This kernel does all four in f32 FMA.
 //
 // Design: the TPU grid's sequential chunk axis becomes a loop inside the
 // block; one block of 256 threads (16 x 16) owns one series, and its f32

@@ -8,6 +8,8 @@ block, GQA read in place); on a CPU tensor it uses
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import build
@@ -18,10 +20,14 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
+                          *, causal: bool = True,
+                          kv_len: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Plain version of :func:`flash_attention`: the whole score matrix at
     once.  Q is scaled by 1/sqrt(D) in its own dtype, as the kernel does;
-    scores, softmax and P V are f32; the output is in Q's dtype."""
+    scores, softmax and P V are f32; the output is in Q's dtype.  The
+    model's one-token decode calls it too, with ``kv_len`` (B,): keys at or
+    past ``kv_len[b]`` are masked (the kernel has no such argument)."""
     b, hq, s, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     qs = (q * (1.0 / d ** 0.5)).float().reshape(b, hkv, hq // hkv, s, d)
@@ -30,6 +36,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal:
         qi = torch.arange(s, device=q.device)
         logits = logits.masked_fill(qi[:, None] < kj[None, :], _NEG_INF)
+    if kv_len is not None:
+        invalid = kj[None, :] >= kv_len[:, None]                 # (B, Sk)
+        logits = logits.masked_fill(invalid[:, None, None, None], _NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", w, v.float())
     return out.reshape(b, hq, s, d).to(q.dtype)

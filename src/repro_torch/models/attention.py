@@ -4,18 +4,19 @@ Counterpart of ``repro.models.attention``.  Public functions keep the
 reference's (B, S, H, dh) layout.  Full-sequence attention goes through
 :func:`repro_torch.kernels.ops.attention` (the flash kernel on the card);
 one-token decode stays plain torch, as in the reference, where the matvec
-path is already memory-optimal.
+path is already memory-optimal: it calls the kernel's plain version,
+:func:`~repro_torch.kernels.flash_attention.flash_attention_plain`, with
+the cache's valid length (the reference's ``_sdpa``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models.common import Config, P_, apply_rope, rms_norm
-
-_NEG_INF = -1e30
 
 
 def attn_specs(cfg: Config, n_layers: int) -> Dict[str, P_]:
@@ -59,25 +60,6 @@ def _qkv(x, p, cfg: Config, positions, rope: bool):
     return q, k, v
 
 
-def _sdpa(q, k, v, causal: bool, kv_len: Optional[torch.Tensor] = None):
-    """(B,S,H,dh) x (B,Sk,KV,dh) GQA attention, f32 softmax (plain path)."""
-    b, s, h, dh = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    qg = q.reshape(b, s, kvh, h // kvh, dh)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(),
-                          k.float()) / (dh ** 0.5)
-    kj = torch.arange(sk, device=q.device)
-    if causal:
-        qi = torch.arange(s, device=q.device)
-        logits = logits.masked_fill(qi[:, None] < kj[None, :], _NEG_INF)
-    if kv_len is not None:
-        invalid = kj[None, :] >= kv_len[:, None]                 # (B, Sk)
-        logits = logits.masked_fill(invalid[:, None, None, None], _NEG_INF)
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
-    return out.reshape(b, s, h, dh).to(q.dtype)
-
-
 def _attend(q, k, v, causal: bool):
     """Full-sequence attention through the ``attention`` site, in the
     (B, S, H, dh) layout (the kernel reads the transposed views in place)."""
@@ -117,6 +99,7 @@ def attn_decode(x, p, cfg: Config, cache_k, cache_v, index: int,
     cache_k[:, index] = k[:, 0].to(cache_k.dtype)
     cache_v[:, index] = v[:, 0].to(cache_v.dtype)
     kv_len = torch.full((x.shape[0],), index + 1, device=x.device)
-    out = _sdpa(q, cache_k.to(q.dtype), cache_v.to(q.dtype), causal=False,
-                kv_len=kv_len)
-    return _out(out, p["wo"]), cache_k, cache_v
+    out = flash_attention_plain(
+        q.transpose(1, 2), cache_k.to(q.dtype).transpose(1, 2),
+        cache_v.to(q.dtype).transpose(1, 2), causal=False, kv_len=kv_len)
+    return _out(out.transpose(1, 2), p["wo"]), cache_k, cache_v

@@ -1,5 +1,5 @@
-"""Shared model machinery: parameter specs, the model Config, norms and
-rotary embeddings.
+"""Shared model machinery: parameter specs, the model Config, norms,
+SwiGLU and rotary embeddings.
 
 Counterpart of ``repro.models.common``.  Parameters are declared as trees
 (nested dicts) of :class:`P_` leaves and drawn by :func:`init_params` from a
@@ -14,6 +14,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 
@@ -145,18 +146,10 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return x * rs[..., None].to(x.dtype) * scale.to(x.dtype)
 
 
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """x * sigmoid(x) with sigmoid = 1 / (1 + exp(-x)), each op rounded to
-    x's dtype, as XLA expands the reference's ``jax.nn.silu``.  ``F.silu``
-    rounds once; in bf16 that moves the smoke model's logits by 1.5e-2
-    against the reference's, this form by 5e-3 (CPU)."""
-    return x * (1 / (1 + torch.exp(-x)))
-
-
 def swiglu(x, w_gate, w_up, w_down):
     g = x @ w_gate.to(x.dtype)
     u = x @ w_up.to(x.dtype)
-    return (silu(g) * u) @ w_down.to(x.dtype)
+    return (F.silu(g) * u) @ w_down.to(x.dtype)
 
 
 def _rope_freqs(d_half: int, theta: float, device) -> torch.Tensor:

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
-from repro_torch.models.common import Config, P_, rms_norm, silu
+from repro_torch.models.common import Config, P_, rms_norm
 
 
 def ssm_specs(cfg: Config, n_layers: int) -> Dict[str, P_]:
@@ -93,7 +93,7 @@ def ssm_apply(x, p, cfg: Config, chunk: int = None,
     h, n, g, pdim = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups, cfg.ssm_head_dim
     z, xin, bp, cp, dt = _split_proj(x, p, cfg)
     xbc_raw = torch.cat([xin, bp, cp], dim=-1)
-    xbc = silu(_causal_depthwise_conv(xbc_raw, p["conv_w"].to(x.dtype)))
+    xbc = F.silu(_causal_depthwise_conv(xbc_raw, p["conv_w"].to(x.dtype)))
     xin, bp, cp = torch.split(xbc, [cfg.d_inner, g * n, g * n], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"])
     a = -torch.exp(p["a_log"].float()) * dt              # (B, S, H) log-decay
@@ -108,7 +108,7 @@ def ssm_apply(x, p, cfg: Config, chunk: int = None,
     y = y.reshape(bsz, h, s, pdim).permute(0, 2, 1, 3)   # (B, S, H, P)
     y = y + p["d_skip"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(bsz, s, cfg.d_inner)
-    y = rms_norm(y * silu(z), p["norm"])
+    y = rms_norm(y * F.silu(z), p["norm"])
     out = y @ p["wo"].to(x.dtype)
     if return_state:
         conv_state = xbc_raw[:, -(cfg.conv_width - 1):]  # (B, W-1, conv_dim)
@@ -128,7 +128,7 @@ def ssm_decode(x, p, cfg: Config, state: Tuple[torch.Tensor, torch.Tensor]
     hist = torch.cat([conv_state.to(dtype), xbc[:, None].to(dtype)], dim=1)
     conv_out = torch.einsum("bwc,wc->bc", hist, p["conv_w"].to(dtype))
     new_conv = hist[:, 1:]
-    xbc = silu(conv_out)
+    xbc = F.silu(conv_out)
     xin, bp, cp = torch.split(xbc, [cfg.d_inner, g * n, g * n], dim=-1)
     dt = F.softplus(dt[:, 0].float() + p["dt_bias"])      # (B, H)
     a = -torch.exp(p["a_log"].float()) * dt
@@ -141,6 +141,6 @@ def ssm_decode(x, p, cfg: Config, state: Tuple[torch.Tensor, torch.Tensor]
     y = torch.einsum("bhn,bhnp->bhp", cg.float(), h_new)
     y = y.to(x.dtype) + p["d_skip"].to(x.dtype)[None, :, None] * xh
     y = y.reshape(bsz, 1, cfg.d_inner)
-    y = rms_norm(y * silu(z), p["norm"])
+    y = rms_norm(y * F.silu(z), p["norm"])
     out = y @ p["wo"].to(x.dtype)
     return out, (h_new.to(h_state.dtype), new_conv)

@@ -16,6 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as rflash  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan as rssd  # noqa: E402
+from repro.models.attention import _sdpa as rsdpa  # noqa: E402
 from repro.models.ssm import ssd_chunked as rssd_chunked  # noqa: E402
 from repro_torch.kernels import dispatch, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -75,6 +76,28 @@ def test_flash_plain_cross_attention_with_fewer_keys():
     v, vj = _pair(_rand(5, 1, 2, 75, 32), torch.float32)
     got = flash_attention_plain(q, k, v, causal=False)
     assert _rel(got, ref.attention(qj, kj, vj, causal=False)) <= F32_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_plain_with_kv_len_matches_reference_sdpa(dtype):
+    """The decode form: one query per sequence against a 50-slot cache of
+    which the first 17 and 41 keys are valid, GQA 4:2, D = 80, held against
+    the reference model's ``_sdpa`` (which scales the f32 scores instead of
+    Q, hence the bf16 tolerance in bf16)."""
+    b, hq, hkv, sk, d = 2, 4, 2, 50, 80
+    q, qj = _pair(_rand(14, b, hq, 1, d), dtype)
+    k, kj = _pair(_rand(15, b, hkv, sk, d), dtype)
+    v, vj = _pair(_rand(16, b, hkv, sk, d), dtype)
+    kv_len = np.array([17, 41], np.int32)
+    got = flash_attention_plain(q, k, v, causal=False,
+                                kv_len=torch.from_numpy(kv_len))
+    assert got.shape == (b, hq, 1, d) and got.dtype == dtype
+    want = rsdpa(*(jnp.swapaxes(t, 1, 2) for t in (qj, kj, vj)), causal=False,
+                 kv_len=jnp.asarray(kv_len))
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert _rel(got.float().transpose(1, 2),
+                np.asarray(want, np.float32)) <= tol
 
 
 def _ssd_inputs(seed, bh, length, p, n):
