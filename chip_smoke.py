@@ -5,7 +5,11 @@
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the hand-written kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``,
-sm_90a), holds each kernel against its plain PyTorch version, drives the
+sm_90a; the tensor-core flash kernel must build without register spills),
+holds each kernel against its plain PyTorch version (the bf16 flash kernel
+also within a quarter of the gap of a witness that rounds P to bf16, which
+the f32 contract forbids, and on a probe whose output needs the third
+bf16 piece of P), drives the
 port's main path — an 8x8 PEPS built by QR-update gates to bond D=6, its
 two-layer IBMPS norm and cached-environment TFI energy at chi=64, and four
 one-layer amplitudes — in complex64 through the kernels, then again through
@@ -25,6 +29,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -73,6 +78,16 @@ TOL_ANCHOR = 1e-1        # 8x8: c64 kernel vs c128 dense (norm, energy)
 # on the same bf16 inputs: both round the same f32 result to bf16, and a
 # sum taken in another order flips the last bit of a few entries (2^-8).
 TOL_BF16_OUT = 4e-3
+# The bf16 flash kernel keeps P exact (three bf16 pieces).  At the served
+# shape and the ragged GQA shape its gap to the plain version must stay
+# under this share of the gap of the plain version with P rounded to bf16,
+# read in the same run.
+WITNESS_SHARE = 0.25
+# ``lo_piece_probe``: an output column that is a difference of two weights
+# agreeing in the 16 bits that P's first two bf16 pieces keep.  With all
+# three pieces it lies about 1e-2 from its exact value, without the third
+# about 0.6.
+TOL_LO_PROBE = 1e-1
 # lm_serve, kernel vs plain prefill logits in f32: a rounding comparison.
 TOL_LM_F32 = 1e-4
 # The bf16 rounding floor of the served model is measured, not assumed: the
@@ -108,6 +123,24 @@ def rel(a, b) -> float:
     return abs(complex(a) - complex(b)) / max(abs(complex(b)), 1e-300)
 
 
+def flash_mma_ptxas(log: str) -> dict:
+    """Registers and spill bytes of each ``flash_mma_kernel<DP>`` from the
+    ``-Xptxas -v`` lines of the build log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"flash_mma_kernelILi(\d+)E", ln)
+            name = f"flash_mma_kernel<{m.group(1)}>" if m else None
+        elif name and "spill stores" in ln:
+            stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+            out.setdefault(name, {}).update(spill_stores=int(stores),
+                                            spill_loads=int(loads))
+        elif name and "Used" in ln and "registers" in ln:
+            out.setdefault(name, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+    return out
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -137,43 +170,55 @@ def time_ms(torch, fn, reps: int = 7, inner: int = 10) -> float:
     return statistics.median(vals)
 
 
-def bound(nbytes: float, f32_flops: float, bf16_flops: float = 0.0):
+def bound(nbytes: float, f32_flops: float, bf16_flops: float = 0.0,
+          mixed_flops: float = 0.0):
     """(ms, "operations" or "bytes"): the larger of the bytes over the
-    memory rate and the operations over the peak for their operands, the
-    products with an f32 operand at the f32 rate and the products of two
+    memory rate and the operations over the peak for their operands.
+    Products of two f32 operands count at the f32 rate; products of two
     bf16 operands at the bf16 tensor-core rate (which multiplies them
-    exactly, accumulating in f32)."""
-    t_ops = f32_flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_TC_FLOPS
+    exactly, accumulating in f32); products of an f32 operand with a bf16
+    one as three bf16 tensor-core products (the f32 operand split exactly
+    into three bf16 pieces, ``flash_attention.split_bf16x3``)."""
+    t_ops = (f32_flops / PEAK_F32_FLOPS
+             + (bf16_flops + 3 * mixed_flops) / PEAK_BF16_TC_FLOPS)
     t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
 def measure_line(torch, line, kernel, plain, library, flops, nbytes,
-                 bf16_flops=0.0):
+                 bf16_flops=0.0, mixed_flops=0.0):
     """Add the kernel's, the plain version's and the library call's times
     (zero-argument callables; ``library`` may be None) and the bound of
-    ``flops`` with an f32 operand and ``bf16_flops`` of two bf16 ones."""
-    b_ms, b_by = bound(nbytes, flops, bf16_flops)
+    ``flops`` of two f32 operands, ``bf16_flops`` of two bf16 ones and
+    ``mixed_flops`` of an f32 operand with a bf16 one."""
+    b_ms, b_by = bound(nbytes, flops, bf16_flops, mixed_flops)
     line.update(ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain),
                 library_ms=None if library is None else time_ms(torch, library),
-                bound_ms=b_ms, bound_by=b_by, flops=flops + bf16_flops,
-                bf16_flops=bf16_flops, bytes=nbytes)
+                bound_ms=b_ms, bound_by=b_by,
+                flops=flops + bf16_flops + mixed_flops,
+                bf16_flops=bf16_flops, mixed_flops=mixed_flops, bytes=nbytes)
     line["share_of_bound"] = b_ms / line["ms"]
-    if bf16_flops:
-        # the same work counted all at one rate, for comparison
-        line["bound_ms_all_f32"] = bound(nbytes, flops + bf16_flops)[0]
-        line["bound_ms_all_bf16_tensor_cores"] = bound(
-            nbytes, 0.0, flops + bf16_flops)[0]
+    if mixed_flops:
+        # the count before the exact split: mixed products at the f32 rate
+        line["bound_ms_mixed_at_f32_rate"] = bound(
+            nbytes, flops + mixed_flops, bf16_flops)[0]
+
+
+def rel_gap(torch, got, want) -> float:
+    """Relative Frobenius distance of ``got`` from ``want``, in f32 or c64."""
+    if not got.is_complex():
+        got, want = got.float(), want.float()
+    return (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
 
 
 def held(torch, name, shape, got, want, tol, **extra):
     """Hold ``got`` against ``want`` (relative Frobenius error, in f32 or
     c64); the kernels-phase line of one comparison."""
     torch.cuda.synchronize()
+    err = rel_gap(torch, got, want)
     if not got.is_complex():
         got, want = got.float(), want.float()
-    err = (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
     line = {"phase": "kernels", "kernel": name, "shape": shape,
             "rel_err": err, "max_abs_err": (got - want).abs().max().item(),
             "tol": tol, **extra}
@@ -360,11 +405,14 @@ def phase_wrappers(torch):
 
 
 def ssd_flops_bytes(bh, length, p, n, chunk, itemsize, state):
-    """(C B^T flops, flops of the products with an f32 operand, bytes): the
-    operations the SSD scan needs (the causal half of each chunk's score
-    tile; C B^T multiplies the two inputs, (C B^T * L) x, C h and the state
-    update each take an f32 operand) and the bytes it must move (x, B, C
-    read, y written, a in f32, the final f32 state when returned)."""
+    """(C B^T flops, flops of the products of an f32 operand with an input,
+    bytes): the operations the SSD scan needs (the causal half of each
+    chunk's score tile; C B^T multiplies two inputs, while (C B^T * L) x,
+    C h and the state update (w * B)^T x each pair an f32 operand, the
+    decayed scores, the state or the decay-weighted B, with an input) and
+    the bytes it must move (x, B, C read, y written, a in f32, the final
+    f32 state when returned).  For bf16 inputs the second kind counts as
+    three bf16 tensor-core products (``bound``)."""
     cb = other = 0
     for t0 in range(0, length, chunk):
         t = min(chunk, length - t0)
@@ -389,9 +437,21 @@ def phase_lm_kernels(torch):
         return (scale * torch.randn(shape, generator=gen,
                                     device="cuda")).to(dtype)
 
+    def within_witness(line, q, k, v, want, causal):
+        # The f32 contract, where it can be seen: the plain version with P
+        # rounded to bf16 (the witness) against the plain version.  The
+        # bf16 kernel keeps P exact, so it must lie well inside that gap.
+        witness = rel_gap(torch, KF.flash_attention_split_plain(
+            q, k, v, causal=causal, pieces=1), want)
+        line["witness_p_bf16_vs_plain"] = witness
+        check(line["rel_err"] <= WITNESS_SHARE * witness,
+              f"flash_attention bf16 {line['shape']}: kernel vs plain "
+              f"{line['rel_err']} > {WITNESS_SHARE} x the P-in-bf16 witness "
+              f"{witness}")
+
     summary = {}
     # -- flash_attention: the served shape, in the model's (B, S, H, D)
-    #    storage, then GQA with a ragged S
+    #    storage, then GQA with a ragged S, then the third piece of P
     b, h, s, d = LM_BATCH, 32, LM_PROMPT, 80
     for dtype, main in ((torch.bfloat16, True), (torch.float32, False)):
         q, k, v = (randn(b, s, h, d, dtype=dtype).transpose(1, 2)
@@ -399,27 +459,50 @@ def phase_lm_kernels(torch):
         kern = lambda q=q, k=k, v=v: KF.flash_attention(q, k, v, causal=True)
         plain = lambda q=q, k=k, v=v: KF.flash_attention_plain(q, k, v,
                                                                causal=True)
-        line = held(torch, "flash_attention", [b, h, s, d], kern(), plain(),
+        got, want = kern(), plain()
+        line = held(torch, "flash_attention", [b, h, s, d], got, want,
                     TOL_BF16_OUT if main else TOL_F32,
                     dtype=str(dtype).replace("torch.", ""), causal=True)
         if main:
-            # each product over the causal half: Q K^T of two bf16 operands,
-            # P V with P in f32
+            within_witness(line, q, k, v, want, True)
+            line["split3_vs_plain"] = rel_gap(
+                torch, KF.flash_attention_split_plain(q, k, v, causal=True),
+                want)
+            # each product over the causal half: Q K^T of two bf16
+            # operands, P V of f32 P with bf16 V
             product = s * (s + 1) * d * b * h
             nbytes = 2 * 4 * b * h * s * d
             measure_line(torch, line, kern, plain,
                          lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
-                             q, k, v, is_causal=True), product, nbytes,
-                         bf16_flops=product)
+                             q, k, v, is_causal=True), 0.0, nbytes,
+                         bf16_flops=product, mixed_flops=product)
             summary["flash_attention"] = line
+        del got, want
         emit(line)
-    for causal in (False, True):
-        q = randn(1, 4, 300, 80)
-        k, v = randn(1, 2, 300, 80), randn(1, 2, 300, 80)
-        emit(held(torch, "flash_attention", [1, 4, 2, 300, 80],
-                  KF.flash_attention(q, k, v, causal=causal),
-                  KF.flash_attention_plain(q, k, v, causal=causal), TOL_F32,
-                  dtype="float32", causal=causal))
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            q = randn(1, 4, 300, 80, dtype=dtype)
+            k, v = (randn(1, 2, 300, 80, dtype=dtype) for _ in range(2))
+            want = KF.flash_attention_plain(q, k, v, causal=causal)
+            line = held(torch, "flash_attention", [1, 4, 2, 300, 80],
+                        KF.flash_attention(q, k, v, causal=causal), want,
+                        TOL_F32 if dtype == torch.float32 else TOL_BF16_OUT,
+                        dtype=str(dtype).replace("torch.", ""), causal=causal)
+            if dtype == torch.bfloat16:
+                within_witness(line, q, k, v, want, causal)
+            emit(line)
+    q, k, v, want = KF.lo_piece_probe("cuda")
+    line = held(torch, "flash_attention lo-piece probe", [1, 1, 64, 16],
+                KF.flash_attention(q, k, v, causal=False)[0, 0, :, 0], want,
+                TOL_LO_PROBE, dtype="bfloat16", causal=False)
+    # the same column from two pieces of P: the probe must see the third
+    two = rel_gap(torch, KF.flash_attention_split_plain(
+        q, k, v, causal=False, pieces=2)[0, 0, :, 0], want)
+    line["two_pieces_rel_err"] = two
+    check(two > TOL_LO_PROBE,
+          f"lo-piece probe: two pieces of P read {two} <= {TOL_LO_PROBE}, so "
+          f"the probe cannot see the third")
+    emit(line)
 
     # -- ssd_scan: the served shape (B * H = 4 * 80 series), then a ragged
     #    last chunk; the final state is held in every case
@@ -449,8 +532,8 @@ def phase_lm_kernels(torch):
         if main:
             cb, other, nbytes = ssd_flops_bytes(bh, length, p, n, chunk,
                                                 dtype.itemsize, True)
-            measure_line(torch, line, kern, plain, None, other, nbytes,
-                         bf16_flops=cb)
+            measure_line(torch, line, kern, plain, None, 0.0, nbytes,
+                         bf16_flops=cb, mixed_flops=other)
             line["library_note"] = ("no single PyTorch call computes the SSD "
                                     "scan")
             summary["ssd_scan"] = line
@@ -934,14 +1017,22 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in build.build_log().splitlines()
+    log = build.build_log()
+    ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
+    mma = flash_mma_ptxas(log)
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas})
+          "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
+          "flash_mma_ptxas": mma})
 
     try:
+        # one instantiation per padded head dimension 16, 32, ..., 128
+        check(len(mma) == 8 and all(
+            f.get("spill_stores") == 0 and f.get("spill_loads") == 0
+            for f in mma.values()),
+            f"flash_mma_kernel spills or is missing from the build log: {mma}")
         summary = phase_kernels(torch)
         phase_wrappers(torch)
         summary.update(phase_lm_kernels(torch))

@@ -37,7 +37,6 @@ _SIGNATURES = {
     "repro_tall_apply_smem_bytes": (_I,),
     "repro_tiled_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P) + (_I,) * 8 + (_L,) * 12 + (_P,),
-    "repro_flash_attention_smem_bytes": (_I,),
     "repro_ssd_scan": (_P,) * 6 + (_I,) * 6 + (_L,) * 8 + (_P,),
     "repro_ssd_scan_smem_bytes": (_I, _I, _I),
 }

@@ -12,14 +12,17 @@
 // What bounds it on the H100: per chunk, counting the causal half of the
 // score tile, T (T + 1) N flops for C B^T, T (T + 1) P for (C B^T * L) x,
 // 2 T N P for C h and 2 T N P for the state update, against 2 T (2 P + 2 N)
-// bytes of bf16 operands: about 64 flops per byte at T = 128, N = P = 64,
-// above the card's 20 for f32, so arithmetic bounds it.  Each product
-// counts at the peak for its operands: C B^T has bf16 operands, which bf16
-// tensor cores with f32 accumulation multiply exactly (989 TFLOP/s); the
-// other three have an f32 operand (the decayed scores, the state, the decay
-// weights; 67 TFLOP/s).  At the served Zamba2 shape (320 series, L = 2048,
-// N = P = 64) that is 5.4e9 flops in 0.0055 ms and 1.6e10 in 0.241 ms:
-// 0.246 ms.  This kernel does all four in f32 FMA.
+// bytes of bf16 operands: about 64 flops per byte at T = 128, N = P = 64.
+// Each product counts at the peak for its operands: C B^T has bf16
+// operands, which bf16 tensor cores with f32 accumulation multiply exactly
+// (989 TFLOP/s); the other three pair an f32 operand (the decayed scores,
+// the state, the decay-weighted B) with a bf16 input, which the tensor
+// cores can do exactly as three bf16 products (the f32 operand split into
+// three bf16 pieces, as the bf16 flash kernel does).  At the served Zamba2
+// shape (320 series, L = 2048, N = P = 64) that is 5.4e9 flops in
+// 0.0055 ms and 3 x 1.6e10 in 0.049 ms, 0.054 ms in all, under the
+// 0.1025 ms the 3.4e8 bytes take: bytes bound it.  This kernel does all
+// four products in f32 FMA.
 //
 // Design: the TPU grid's sequential chunk axis becomes a loop inside the
 // block; one block of 256 threads (16 x 16) owns one series, and its f32

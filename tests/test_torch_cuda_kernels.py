@@ -22,6 +22,12 @@ F32_TOL = 1e-5
 # bf16 outputs: both round the same f32 result to bf16; a sum taken in
 # another order can flip the last bit of an entry (2^-8 relative)
 BF16_TOL = 4e-3
+# the bf16 flash kernel keeps P exact, so only such flips remain (about
+# 4e-5); P rounded to bf16 reads about 1e-3
+FLASH_BF16_TOL = 4e-4
+# ``lo_piece_probe``'s column against its exact value: about 1e-2 with all
+# three pieces of P, about 0.6 without the third
+PROBE_TOL = 0.1
 
 
 @pytest.fixture
@@ -119,6 +125,8 @@ def _qkv(seed, b, hq, hkv, s, sk, d, dtype, layout):
     (1, 2, 2, 64, 64, 128, True, "bhsd"),      # the largest head dim
     (1, 2, 2, 100, 75, 32, False, "bhsd"),     # fewer keys than queries
     (2, 32, 32, 512, 512, 80, True, "bshd"),   # Zamba2 heads, shorter S
+    (1, 4, 2, 200, 200, 48, True, "bshd"),     # D = 48
+    (1, 4, 2, 150, 150, 24, False, "bhsd"),    # D = 24, padded to 32
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -131,7 +139,7 @@ def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, s, sk, d,
     assert KF.flash_attention.launches == before + 1
     assert got.shape == q.shape and got.dtype == dtype
     want = KF.flash_attention_plain(q, k, v, causal=causal)
-    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    tol = F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
     assert _crel(got.float(), want.float()) <= tol
 
 
@@ -145,6 +153,28 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="unit stride"):
         KF.flash_attention(q.transpose(2, 3), q.transpose(2, 3),
                            q.transpose(2, 3))
+    # bf16: rows of 84 elements (not 16-byte multiples), D = 20
+    q = _crand(12, 1, 2, 16, 84).to(torch.bfloat16)[..., :80]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        KF.flash_attention(q, q, q)
+    q = _crand(13, 1, 2, 16, 20).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        KF.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_flash_attention_bf16_keeps_the_third_piece_of_p(cuda, seed):
+    """The output column of ``lo_piece_probe`` is a difference of two
+    weights that agree in the 16 bits hi and mid keep: the kernel meets its
+    exact value only if it multiplies lo too.  The plain sum of two pieces
+    misses it on the same inputs."""
+    q, k, v, want = KF.lo_piece_probe("cuda", seed)
+    got = KF.flash_attention(q, k, v, causal=False)[0, 0, :, 0]
+    two = KF.flash_attention_split_plain(q, k, v, causal=False,
+                                         pieces=2)[0, 0, :, 0]
+    assert _crel(got.double(), want) <= PROBE_TOL
+    assert _crel(two.double(), want) > PROBE_TOL
 
 
 # -------------------------------------------------------------- ssd scan ----

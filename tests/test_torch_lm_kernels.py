@@ -20,7 +20,8 @@ from repro.models.attention import _sdpa as rsdpa  # noqa: E402
 from repro.models.ssm import ssd_chunked as rssd_chunked  # noqa: E402
 from repro_torch.kernels import dispatch, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_plain, flash_attention_split_plain,
+    lo_piece_probe, split_bf16x3)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 
@@ -30,6 +31,13 @@ F32_TOL = 1e-5
 # and in the Pallas kernel but not in ref.attention, and the output is
 # rounded to bf16 (relative step 2^-8).
 BF16_TOL = 2e-2
+# P V as three bf16 products of the exact split of P against P V in f32:
+# the same sums in another order, about 2e-7; with two pieces (P to 16
+# bits) about 2.5e-6.
+SPLIT3_TOL = 1e-6
+# ``lo_piece_probe``'s column against its exact value: about 1e-2 with all
+# three pieces, about 0.6 without lo.
+PROBE_TOL = 0.1
 _JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 
@@ -67,6 +75,97 @@ def test_flash_plain_matches_pallas_and_oracle(causal, d, dtype):
     oracle = ref.attention(qj, kj, vj, causal=causal)
     assert _rel(got.float(), np.asarray(pallas, np.float32)) <= tol
     assert _rel(got.float(), np.asarray(oracle, np.float32)) <= tol
+
+
+def _softmax_values(kind):
+    """f32 values the bf16 kernel splits: softmax rows of random logits at
+    two spreads (the wide one reaches far below 1e-30), or edge values."""
+    if kind == "edges":
+        return torch.tensor([0.0, 1.0, 0.5, 1.0 - 2.0 ** -24, 1e-30, 3e-30,
+                             2.0 ** -126, 1e-38, 1e-40, 1e-45, 2.0 ** -100,
+                             0.1, 1.0 / 3.0], dtype=torch.float32)
+    spread = {"narrow": 1.0, "wide": 40.0}[kind]
+    logits = torch.from_numpy(_rand(20, 64, 512, scale=spread))
+    return torch.softmax(logits, dim=-1)
+
+
+@pytest.mark.parametrize("kind", ["narrow", "wide", "edges"])
+def test_split_bf16x3_rebuilds_f32_softmax_values(kind):
+    """hi + mid + lo is p bit for bit for p >= 1e-30; below, bf16's
+    subnormals cost lo some bits, an absolute error under 1e-38."""
+    p = _softmax_values(kind)
+    pieces = split_bf16x3(p)
+    assert all(x.dtype == torch.bfloat16 for x in pieces)
+    hi, mid, lo = (x.float() for x in pieces)
+    back = (hi + mid) + lo
+    big = p >= 1e-30
+    assert torch.equal(back[big], p[big])
+    assert ((back - p).abs() < 1e-38)[~big].all()
+    assert torch.equal(hi, p.to(torch.bfloat16).float())
+
+
+def _bf16_valued(seed, *shape):
+    """Random values representable in bf16, held in f32: the kernel's bf16
+    operands, seen by an f32 computation."""
+    return torch.from_numpy(_rand(seed, *shape)).to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("d", [16, 80])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_with_p_split_in_three_matches_pallas_and_plain(causal, d):
+    """P V as three bf16 products of the exact split of P, accumulated in
+    f32 (the bf16 kernel's arithmetic), against the Pallas kernel in
+    interpret mode and the plain version (P V in f32), GQA 4:2 at a ragged
+    S = 100."""
+    b, hq, hkv, s = 1, 4, 2, 100
+    q, k, v = (_bf16_valued(30 + i, b, h, s, d)
+               for i, h in enumerate((hq, hkv, hkv)))
+    got = flash_attention_split_plain(q, k, v, causal=causal, pieces=3)
+    pallas = rflash(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                    causal=causal, bq=64, bk=64, interpret=True)
+    assert _rel(got, np.asarray(pallas)) <= F32_TOL
+    assert _rel(got, flash_attention_plain(q, k, v, causal=causal)) <= F32_TOL
+    assert _rel(got, flash_attention_plain(q, k, v, causal=causal)) \
+        <= SPLIT3_TOL
+
+
+def test_flash_with_p_rounded_to_bf16_misses_the_f32_tolerance():
+    """The witness: the same computation with P rounded to bf16 (one piece)
+    lies beyond F32_TOL from the plain version, so the test above can tell
+    an exact P from a rounded one."""
+    b, hq, hkv, s, d = 1, 4, 2, 100, 80
+    q, k, v = (_bf16_valued(30 + i, b, h, s, d)
+               for i, h in enumerate((hq, hkv, hkv)))
+    want = flash_attention_plain(q, k, v, causal=True)
+    assert _rel(flash_attention_split_plain(q, k, v, causal=True, pieces=1),
+                want) > F32_TOL
+
+
+@pytest.mark.parametrize("d", [16, 80])
+def test_flash_with_p_in_two_pieces_misses_the_split_tolerance(d):
+    """Without lo, P keeps 16 bits: the gap to the plain version lies
+    beyond SPLIT3_TOL, so the three-piece test can tell two pieces from
+    three."""
+    b, hq, hkv, s = 1, 4, 2, 100
+    q, k, v = (_bf16_valued(30 + i, b, h, s, d)
+               for i, h in enumerate((hq, hkv, hkv)))
+    want = flash_attention_plain(q, k, v, causal=True)
+    assert _rel(flash_attention_split_plain(q, k, v, causal=True, pieces=2),
+                want) > SPLIT3_TOL
+
+
+@pytest.mark.parametrize("pieces", [2, 3])
+def test_lo_piece_probe_tells_three_pieces_from_two(pieces):
+    """The probe the card holds the bf16 kernel to: its column is exact to
+    PROBE_TOL only when lo is in the sum."""
+    q, k, v, want = lo_piece_probe("cpu")
+    assert all(t.dtype == torch.bfloat16 for t in (q, k, v))
+    got = flash_attention_split_plain(q, k, v, causal=False, pieces=pieces)
+    assert (_rel(got[0, 0, :, 0].double(), want) <= PROBE_TOL) \
+        == (pieces == 3)
+    # the plain version (P V in f32) is the three-piece sum's reference
+    plain = flash_attention_plain(q, k, v, causal=False)[0, 0, :, 0]
+    assert _rel(plain.double(), want) <= PROBE_TOL
 
 
 def test_flash_plain_cross_attention_with_fewer_keys():
