@@ -5,8 +5,10 @@
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the hand-written kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``,
-sm_90a; the tensor-core flash kernel must build without register spills),
-holds each kernel against its plain PyTorch version (the bf16 flash kernel
+sm_90a; the tensor-core flash kernel and the Gram kernels must build
+without register spills), holds each kernel against its plain PyTorch
+version (the complex Gram also for exact Hermiticity and bit-for-bit
+repeats; the bf16 flash kernel
 also within a quarter of the gap of a witness that rounds P to bf16, which
 the f32 contract forbids, and on a probe whose output needs the third
 bf16 piece of P), drives the
@@ -123,14 +125,28 @@ def rel(a, b) -> float:
     return abs(complex(a) - complex(b)) / max(abs(complex(b)), 1e-300)
 
 
-def flash_mma_ptxas(log: str) -> dict:
-    """Registers and spill bytes of each ``flash_mma_kernel<DP>`` from the
-    ``-Xptxas -v`` lines of the build log."""
+# Kernels that must build without spills: (pattern of the mangled name,
+# label, instantiations).  flash_mma_kernel<DP>: one per padded head
+# dimension 16, 32, ..., 128; the Gram kernels: <complex, bf16>.
+NO_SPILL_KERNELS = ((r"flash_mma_kernelILi(\d+)E", "flash_mma_kernel<{}>", 8),
+                    (r"gram_tile_kernelILb(\d)ELb(\d)E",
+                     "gram_tile_kernel<{},{}>", 4),
+                    (r"gram_reduce_kernelILb(\d)E", "gram_reduce_kernel<{}>",
+                     2))
+
+
+def no_spill_ptxas(log: str) -> dict:
+    """Registers and spill bytes of each instantiation of the kernels in
+    ``NO_SPILL_KERNELS``, from the ``-Xptxas -v`` lines of the build log."""
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"flash_mma_kernelILi(\d+)E", ln)
-            name = f"flash_mma_kernel<{m.group(1)}>" if m else None
+            name = None
+            for pattern, label, _ in NO_SPILL_KERNELS:
+                m = re.search(pattern, ln)
+                if m:
+                    name = label.format(*m.groups())
+                    break
         elif name and "spill stores" in ln:
             stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
             out.setdefault(name, {}).update(spill_stores=int(stores),
@@ -269,6 +285,9 @@ def phase_kernels(torch):
                      library, flops, nbytes)
         summary.setdefault(name, line)
 
+    def crandn(*shape):
+        return torch.complex(randn(*shape), randn(*shape))
+
     # -- gram: G = A^T A --------------------------------------------------
     for m, n, main in [(82944, 72, True), (2304, 72, True), (216, 12, False),
                        (216, 24, False), (1000, 1, False), (777, 70, False),
@@ -280,6 +299,30 @@ def phase_kernels(torch):
         if main:
             measure("gram", line, kern, plain, lambda a=a: torch.matmul(a.T, a),
                     m * n * (n + 1), 4 * (m * n + n * n))
+        emit(line)
+
+    # -- gram_complex: G = A^H A of c64 A, its storage read once -----------
+    #    the main path's shapes (measured), then odd ones
+    for m, n, main in [(82944, 72, True), (46656, 72, True), (82944, 36, True),
+                       (2304, 72, True), (1296, 72, False), (36, 36, False),
+                       (1, 1, False), (2304, 1, False), (5000, 200, False),
+                       (33, 130, False)]:
+        a = crandn(m, n)
+        kern = lambda c, a=a: KG.gram_complex(a, compute=c)
+        plain = lambda c, a=a: KG.gram_complex_plain(a, compute=c)
+        line = compare("gram_complex", [m, n], kern, plain, bf16=True)
+        for c in (None, "bfloat16"):
+            g = kern(c)
+            check(torch.equal(g.real, g.real.T)
+                  and torch.equal(g.imag, -g.imag.T),
+                  f"gram_complex {[m, n]} {c}: not exactly Hermitian")
+            check(torch.equal(kern(c), g),
+                  f"gram_complex {[m, n]} {c}: a second call differs")
+        line["hermitian_and_repeats_bitwise"] = True
+        if main:
+            measure("gram_complex", line, kern, plain,
+                    lambda a=a: torch.matmul(a.mH, a), 4 * m * n * n,
+                    8 * (m * n + n * n))
         emit(line)
 
     # -- tall_apply: C = A B with B resident --------------------------------
@@ -325,13 +368,11 @@ def phase_kernels(torch):
 
 
 def phase_wrappers(torch):
-    """``gram_complex``, ``planar_matmul`` and the three zip-up sites in c64
-    at the 8x8 main path's shapes.  Each wrapper on the card is held against
-    the same function built from its kernels' plain versions; each zip-up
-    site in its kernel form against its dense (einsum) form."""
-    from repro_torch.kernels import gram as KG
+    """``planar_matmul`` and the three zip-up sites in c64 at the 8x8 main
+    path's shapes.  The wrapper on the card is held against the same
+    function built from its kernel's plain version; each zip-up site in its
+    kernel form against its dense (einsum) form."""
     from repro_torch.kernels import matvec as KM
-    from repro_torch.kernels import tiled_matmul as KT
     from repro_torch.kernels import zipup_block as Z
 
     gen = torch.Generator(device="cuda")
@@ -341,22 +382,6 @@ def phase_wrappers(torch):
         re, im = (torch.randn(shape, generator=gen, device="cuda")
                   for _ in range(2))
         return torch.complex(re, im)
-
-    # -- gram_complex: G = A^H A (two real Grams + the tiled cross term) ----
-    m, n = 82944, 72
-    a = crandn(m, n)
-
-    def gram_complex_plain():
-        ar, ai = a.real.contiguous(), a.imag.contiguous()
-        x = KT.tiled_matmul_plain(ar.T, ai)
-        return torch.complex(KG.gram_plain(ar) + KG.gram_plain(ai), x - x.T)
-
-    line = held(torch, "gram_complex", [m, n], KG.gram_complex(a),
-                gram_complex_plain(), TOL_F32, dtype="complex64")
-    measure_line(torch, line, lambda: KG.gram_complex(a), gram_complex_plain,
-                 lambda: torch.matmul(a.mH, a), 4 * m * n * (n + 1),
-                 8 * (m * n + n * n))
-    emit(line)
 
     # -- planar_matmul: complex A B as one doubled real tall-apply ----------
     m, k, n = 82944, 72, 72
@@ -633,7 +658,7 @@ def _as_pair(z: complex):
 
 def phase_main_path(torch, np):
     from repro_torch.kernels import dispatch
-    from repro_torch.kernels.gram import gram
+    from repro_torch.kernels.gram import gram, gram_complex
     from repro_torch.kernels.matvec import tall_apply
     from repro_torch.kernels.tiled_matmul import tiled_matmul
 
@@ -643,12 +668,13 @@ def phase_main_path(torch, np):
 
     # the kernel run: every count starts at 0 and is read right after
     dispatch.reset_dispatch_stats()
-    for fn in (gram, tall_apply, tiled_matmul):
+    for fn in (gram, gram_complex, tall_apply, tiled_matmul):
         fn.launches = 0
     kern, state = run_main_path(torch, torch.complex64, "kernel", thetas,
                                 bits_list)
     counters = dispatch.dispatch_stats()
-    launches = {"gram": gram.launches, "tall_apply": tall_apply.launches,
+    launches = {"gram": gram.launches, "gram_complex": gram_complex.launches,
+                "tall_apply": tall_apply.launches,
                 "tiled_matmul": tiled_matmul.launches}
 
     dense, _ = run_main_path(torch, torch.complex64, "dense", thetas, bits_list)
@@ -688,8 +714,14 @@ def phase_main_path(torch, np):
                  "zipup_first_twolayer"):
         check(counters[f"kernel_{site}_calls"] > 0,
               f"site {site} never ran through a kernel")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched on the main path")
+    # complex64 throughout: every Gram is one gram_complex launch, so the
+    # real Gram and the tiled GEMM (the planar form's parts) never run
+    for name in ("gram_complex", "tall_apply"):
+        check(launches[name] > 0,
+              f"kernel {name} was never launched on the main path")
+    for name in ("gram", "tiled_matmul"):
+        check(launches[name] == 0,
+              f"kernel {name} ran {launches[name]} times on the c64 main path")
     return launches, state
 
 
@@ -700,12 +732,15 @@ def phase_profile(torch, state):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.bmps import BMPS, norm_squared
     from repro_torch.kernels import dispatch
+    from repro_torch.kernels.gram import gram_complex
+    from repro_torch.kernels.matvec import tall_apply
 
     option = BMPS.randomized(CHI, niter=4, oversample=8)
     prev = dispatch.set_kernel_backend("kernel")
     try:
         norm_squared(state, option)
         torch.cuda.synchronize()
+        gram_complex.launches = tall_apply.launches = 0
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -715,6 +750,8 @@ def phase_profile(torch, state):
     finally:
         dispatch.set_kernel_backend(prev)
     emit({"phase": "profile", "what": "norm_squared, complex64, kernel mode",
+          "launches_per_norm": {"gram_complex": gram_complex.launches,
+                                "tall_apply": tall_apply.launches},
           **device_profile(prof, wall)})
 
 
@@ -1020,19 +1057,21 @@ def main() -> int:
     log = build.build_log()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
-    mma = flash_mma_ptxas(log)
+    no_spill = no_spill_ptxas(log)
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
-          "flash_mma_ptxas": mma})
+          "no_spill_ptxas": no_spill})
 
     try:
-        # one instantiation per padded head dimension 16, 32, ..., 128
-        check(len(mma) == 8 and all(
-            f.get("spill_stores") == 0 and f.get("spill_loads") == 0
-            for f in mma.values()),
-            f"flash_mma_kernel spills or is missing from the build log: {mma}")
+        for _, label, count in NO_SPILL_KERNELS:
+            found = {k: v for k, v in no_spill.items()
+                     if k.startswith(label.split("<")[0] + "<")}
+            check(len(found) == count and all(
+                f.get("spill_stores") == 0 and f.get("spill_loads") == 0
+                for f in found.values()),
+                f"{label} spills or is missing from the build log: {found}")
         summary = phase_kernels(torch)
         phase_wrappers(torch)
         summary.update(phase_lm_kernels(torch))
@@ -1048,6 +1087,8 @@ def main() -> int:
 
     sources = {"gram": ("src/repro_torch/kernels/csrc/gram.cu",
                         "src/repro/kernels/gram.py:27"),
+               "gram_complex": ("src/repro_torch/kernels/csrc/gram.cu",
+                                "src/repro/kernels/gram.py:82"),
                "tall_apply": ("src/repro_torch/kernels/csrc/tall_apply.cu",
                               "src/repro/kernels/matvec.py:34"),
                "tiled_matmul": ("src/repro_torch/kernels/csrc/tiled_matmul.cu",

@@ -6,7 +6,8 @@ eigendecomposes G, and reconstitutes the isometry ``Q = A P`` with one more
 GEMM.  Two kernel-dispatch sites (:mod:`repro_torch.kernels.dispatch`):
 
 * ``"gram"``       — G = A^H A: the streaming-Gram kernel
-  (``src/repro_torch/kernels/gram.py``; complex through ``gram_complex``);
+  (``src/repro_torch/kernels/gram.py``; complex64 through ``gram_complex``,
+  one kernel that reads the interleaved storage once);
 * ``"tall_apply"`` — Q = A P and the final rSVD projections: the
   tall-apply kernel (``src/repro_torch/kernels/matvec.py``).
 
@@ -39,11 +40,11 @@ def _gram_dense(a: torch.Tensor, big_axes, nbig: int, nsmall: int):
 
 
 def _gram_kernel(a: torch.Tensor, big_axes, nbig: int, nsmall: int):
-    mat = a.reshape(nbig, nsmall)
+    mat = a.reshape(nbig, nsmall).contiguous()
     compute = _dispatch.kernel_compute()
     if a.is_complex():
         return gram_complex(mat, compute=compute)
-    return gram(mat.contiguous(), compute=compute)
+    return gram(mat, compute=compute)
 
 
 _dispatch.register_kernel(

@@ -32,7 +32,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "repro_gram_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "repro_gram_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_gram_c64": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_gram_splits": (_I, _I, _I),
     "repro_tall_apply_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_tall_apply_smem_bytes": (_I,),
     "repro_tiled_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -134,8 +136,13 @@ def check(err: int, kernel: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw pointer of the current CUDA stream on ``device`` (PyTorch's
+    own accessor: building a ``torch.cuda.Stream`` object costs several
+    microseconds a launch)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def f32_matrix(x, name: str, *, allow_transposed: bool = False):

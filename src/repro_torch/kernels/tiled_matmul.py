@@ -3,9 +3,9 @@
 Counterpart of ``repro.kernels.tiled_matmul``.  On a CUDA tensor
 :func:`tiled_matmul` launches ``csrc/tiled_matmul.cu``; on a CPU tensor it
 uses :func:`tiled_matmul_plain`.  ``a`` may be the transpose of a row-major
-matrix (``x.T``), which the kernel reads in place — the cross term
-``(Re A)^T (Im A)`` of :func:`~repro_torch.kernels.gram.gram_complex` needs
-no transposed copy.
+matrix (``x.T``), which the kernel reads in place.  No site of the port's
+main path calls it: the complex Gram's cross term, its caller in the
+reference, is computed inside :func:`~repro_torch.kernels.gram.gram_complex`.
 """
 from __future__ import annotations
 

@@ -48,7 +48,7 @@ def _crel(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n", [(82944, 72), (2304, 72), (216, 12), (1000, 1),
-                                 (777, 70), (5000, 200)])
+                                 (777, 70), (5000, 200), (33, 130)])
 @pytest.mark.parametrize("compute", [None, "bfloat16"])
 def test_gram_kernel_matches_plain(cuda, m, n, compute):
     a = _crand(0, m, n)
@@ -58,6 +58,7 @@ def test_gram_kernel_matches_plain(cuda, m, n, compute):
     assert KG.gram.launches == before + 1
     assert _crel(got, KG.gram_plain(a, compute)) <= F32_TOL
     assert torch.equal(got, got.T)      # mirrored: exactly symmetric
+    assert torch.equal(KG.gram(a, compute=compute), got)   # fixed order
 
 
 @pytest.mark.cuda
@@ -96,13 +97,52 @@ def test_tiled_matmul_kernel_matches_plain(cuda, m, k, n, transposed, compute):
     assert _crel(got, KT.tiled_matmul_plain(a, b, compute)) <= F32_TOL
 
 
+def _c64(seed, m, n):
+    return torch.complex(_crand(seed, m, n), _crand(seed + 1, m, n))
+
+
 @pytest.mark.cuda
-def test_gram_complex_on_the_card_is_hermitian_and_matches(cuda):
-    a = torch.complex(_crand(7, 4096, 40), _crand(8, 4096, 40))
-    got = KG.gram_complex(a)
-    want = a.conj().T @ a
-    assert _crel(got, want) <= F32_TOL
+@pytest.mark.parametrize("m,n", [(82944, 72), (46656, 72), (82944, 36),
+                                 (2304, 72), (1296, 72), (36, 36), (1, 1),
+                                 (2304, 1), (5000, 200), (33, 130)])
+@pytest.mark.parametrize("compute", [None, "bfloat16"])
+def test_gram_complex_on_the_card_is_hermitian_and_matches(cuda, m, n,
+                                                           compute):
+    """One kernel (and its reduce) reads the c64 storage: it matches the
+    plain version, is exactly Hermitian, repeats bit for bit, and launches
+    neither the real Gram nor the tiled GEMM."""
+    a = _c64(7, m, n)
+    before = (KG.gram_complex.launches, KG.gram.launches,
+              KT.tiled_matmul.launches)
+    got = KG.gram_complex(a, compute=compute)
+    torch.cuda.synchronize()
+    assert (KG.gram_complex.launches, KG.gram.launches,
+            KT.tiled_matmul.launches) == (before[0] + 1,) + before[1:]
+    assert got.dtype == torch.complex64 and got.shape == (n, n)
+    assert _crel(got, KG.gram_complex_plain(a, compute)) <= F32_TOL
+    assert torch.equal(got.real, got.real.T)
     assert torch.equal(got.imag, -got.imag.T)
+    assert torch.equal(KG.gram_complex(a, compute=compute), got)
+
+
+@pytest.mark.cuda
+def test_gram_complex_of_a_conj_view(cuda):
+    a = _c64(9, 3000, 72)
+    got = KG.gram_complex(a.conj())
+    b = a.conj().resolve_conj()
+    assert _crel(got, b.mH @ b) <= F32_TOL
+    assert _crel(got, KG.gram_complex(a).conj()) <= F32_TOL
+
+
+@pytest.mark.cuda
+def test_gram_complex_refuses_what_the_kernel_does_not_take(cuda):
+    a = _c64(11, 500, 80)
+    with pytest.raises(TypeError, match="complex64"):
+        KG.gram_complex(a.to(torch.complex128))
+    with pytest.raises(ValueError, match="row-major contiguous"):
+        KG.gram_complex(a[:, :72])
+    with pytest.raises(ValueError, match="row-major contiguous"):
+        KG.gram_complex(a.T)
 
 
 # ------------------------------------------------------- flash attention ----

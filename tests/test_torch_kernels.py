@@ -1,10 +1,10 @@
-"""The plain versions of the port's three kernels against the reference.
+"""The plain versions of the port's kernels against the reference.
 
-The plain versions (``gram_plain``, ``tall_apply_plain``,
-``tiled_matmul_plain``) are what the wrappers run for CPU tensors; they are
-held against ``src/repro/kernels/ref.py`` (f32 cast, matmul, cast back) and,
-with bf16 multiplicands, against the reference Pallas kernels in interpret
-mode.  The CUDA kernels themselves are tested against these plain versions
+The plain versions (``gram_plain``, ``gram_complex_plain``,
+``tall_apply_plain``, ``tiled_matmul_plain``) are what the wrappers run for
+CPU tensors; they are held against ``src/repro/kernels/ref.py`` (f32 cast,
+matmul, cast back) and, with bf16 multiplicands or complex operands,
+against the reference Pallas kernels in interpret mode.  The CUDA kernels themselves are tested against these plain versions
 in ``tests/test_torch_cuda_kernels.py``.
 """
 import numpy as np
@@ -57,6 +57,49 @@ def test_gram_complex_plain_matches_reference(shape):
     # the imaginary part is X - X^T: exactly antisymmetric
     im = got.imag.numpy()
     np.testing.assert_array_equal(im, -im.T)
+
+
+GRAM_COMPLEX_SHAPES = [(300, 72), (216, 36), (50, 1), (33, 130)]
+
+
+@pytest.mark.parametrize("compute", [None, "bfloat16"])
+@pytest.mark.parametrize("shape", GRAM_COMPLEX_SHAPES)
+def test_gram_complex_matches_reference_kernel(shape, compute):
+    """``gram_complex_plain`` and the CPU path of ``gram_complex`` against
+    the reference's planar ``gram_complex`` in interpret mode: the same
+    (bf16-rounded, under ``compute``) f32 products summed in another order.
+    With bf16 multiplicands the error from the exact product is engaged and
+    within the 2e-2 ``kernel_bf16_gemm`` budget."""
+    a = _rand(11, *shape, complex_=True)
+    want = np.asarray(RG.gram_complex(jnp.asarray(a), interpret=True,
+                                      compute=compute))
+    t = torch.from_numpy(a)
+    for got in (KG.gram_complex_plain(t, compute),
+                KG.gram_complex(t, compute=compute)):
+        assert got.dtype == torch.complex64 and got.shape == (shape[1],) * 2
+        assert _rel(got.numpy(), want) <= F32_TOL
+    if compute is not None:
+        exact = a.astype(np.complex128).conj().T @ a.astype(np.complex128)
+        err = _rel(got.numpy(), exact)
+        assert 1e-5 < err <= 2e-2, err
+
+
+@pytest.mark.parametrize("compute", [None, "bfloat16"])
+@pytest.mark.parametrize("shape", GRAM_COMPLEX_SHAPES)
+def test_gram_complex_plain_is_exactly_hermitian(shape, compute):
+    g = KG.gram_complex_plain(torch.from_numpy(_rand(12, *shape,
+                                                     complex_=True)), compute)
+    assert torch.equal(g.real, g.real.T)
+    assert torch.equal(g.imag, -g.imag.T)
+    assert torch.count_nonzero(torch.diagonal(g.imag)) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.float32])
+def test_gram_complex_refuses_other_dtypes(dtype):
+    a = torch.from_numpy(_rand(13, 20, 4, complex_=True))
+    a = a.to(dtype) if dtype.is_complex else a.real.contiguous()
+    with pytest.raises(TypeError, match="complex64"):
+        KG.gram_complex(a)
 
 
 @pytest.mark.parametrize("m,k,n", [(300, 24, 24), (1000, 144, 144),
@@ -119,10 +162,12 @@ def test_bf16_multiplicands_match_reference_kernel(kernel):
 
 
 def test_wrappers_count_launches_only_on_the_card():
-    before = (KG.gram.launches, KM.tall_apply.launches, KT.tiled_matmul.launches)
+    before = (KG.gram.launches, KG.gram_complex.launches,
+              KM.tall_apply.launches, KT.tiled_matmul.launches)
     a = torch.from_numpy(_rand(10, 50, 6))
     KG.gram(a)
+    KG.gram_complex(torch.from_numpy(_rand(10, 50, 6, complex_=True)))
     KM.tall_apply(a, a.T.contiguous())
     KT.tiled_matmul(a.T, a)
-    assert (KG.gram.launches, KM.tall_apply.launches,
-            KT.tiled_matmul.launches) == before
+    assert (KG.gram.launches, KG.gram_complex.launches,
+            KM.tall_apply.launches, KT.tiled_matmul.launches) == before
