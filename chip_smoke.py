@@ -5,13 +5,14 @@
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the hand-written kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``,
-sm_90a; the tensor-core flash kernel and the Gram kernels must build
-without register spills), holds each kernel against its plain PyTorch
-version (the complex Gram also for exact Hermiticity and bit-for-bit
-repeats; the bf16 flash kernel
-also within a quarter of the gap of a witness that rounds P to bf16, which
-the f32 contract forbids, and on a probe whose output needs the third
-bf16 piece of P), drives the
+sm_90a; the tensor-core flash kernel, the Gram kernels and the tall-apply
+kernels must build without register spills), holds each kernel against
+its plain PyTorch version (the complex Gram also for exact Hermiticity and
+bit-for-bit repeats; the tall-apply for bit-for-bit repeats, and the
+complex one on conj and strided views and at a depth K beyond the old
+shared-memory limit; the bf16 flash kernel also within a quarter of the
+gap of a witness that rounds P to bf16, which the f32 contract forbids,
+and on a probe whose output needs the third bf16 piece of P), drives the
 port's main path — an 8x8 PEPS built by QR-update gates to bond D=6, its
 two-layer IBMPS norm and cached-environment TFI energy at chi=64, and four
 one-layer amplitudes — in complex64 through the kernels, then again through
@@ -127,12 +128,15 @@ def rel(a, b) -> float:
 
 # Kernels that must build without spills: (pattern of the mangled name,
 # label, instantiations).  flash_mma_kernel<DP>: one per padded head
-# dimension 16, 32, ..., 128; the Gram kernels: <complex, bf16>.
+# dimension 16, 32, ..., 128; the Gram kernels: <complex, bf16>; the
+# tall-apply: <complex, bf16, conj B>, 4 complex and 2 real.
 NO_SPILL_KERNELS = ((r"flash_mma_kernelILi(\d+)E", "flash_mma_kernel<{}>", 8),
                     (r"gram_tile_kernelILb(\d)ELb(\d)E",
                      "gram_tile_kernel<{},{}>", 4),
                     (r"gram_reduce_kernelILb(\d)E", "gram_reduce_kernel<{}>",
-                     2))
+                     2),
+                    (r"tall_apply_kernelILb(\d)ELb(\d)ELb(\d)E",
+                     "tall_apply_kernel<{},{},{}>", 6))
 
 
 def no_spill_ptxas(log: str) -> dict:
@@ -325,26 +329,56 @@ def phase_kernels(torch):
                     8 * (m * n + n * n))
         emit(line)
 
-    # -- tall_apply: C = A B with B resident --------------------------------
+    # -- tall_apply: C = A B, B staged over K; K = 900 is beyond the depth
+    #    the old resident slab of B could hold in shared memory -------------
     for m, k, n, main in [(82944, 144, 144, True), (2304, 144, 144, True),
                           (82944, 144, 128, False), (216, 24, 24, False),
                           (1000, 1, 1, False), (1000, 37, 1, False),
-                          (777, 70, 200, False), (513, 600, 130, False)]:
+                          (777, 70, 200, False), (513, 600, 130, False),
+                          (64, 900, 8, False)]:
         a, b = randn(m, k), randn(k, n)
         kern = lambda c, a=a, b=b: KM.tall_apply(a, b, compute=c)
         plain = lambda c, a=a, b=b: KM.tall_apply_plain(a, b, compute=c)
         line = compare("tall_apply", [m, k, n], kern, plain, bf16=main)
+        check(torch.equal(kern(None), kern(None)),
+              f"tall_apply {[m, k, n]}: a second call differs")
         if main:
             measure("tall_apply", line, kern, plain,
                     lambda a=a, b=b: torch.matmul(a, b),
                     2 * m * k * n, 4 * (m * k + k * n + m * n))
         emit(line)
-    try:   # a reduction depth whose slab exceeds shared memory is refused
-        KM.tall_apply(randn(64, 900), randn(900, 8))
-        raise CheckFailed("tall_apply accepted K=900 beyond shared memory")
-    except ValueError as e:
-        emit({"phase": "kernels", "kernel": "tall_apply", "shape": [64, 900, 8],
-              "refused": str(e)[:120]})
+
+    # -- tall_apply_complex: C = A B of c64 A read in place -----------------
+    #    the main path's shapes (measured), then odd ones and K = 488
+    for m, k, n, main in [(82944, 72, 72, True), (82944, 72, 64, True),
+                          (46656, 72, 72, True), (2304, 72, 72, True),
+                          (1296, 72, 72, True), (1, 1, 1, False),
+                          (777, 70, 200, False), (64, 488, 8, False)]:
+        a, b = crandn(m, k), crandn(k, n)
+        kern = lambda c, a=a, b=b: KM.tall_apply_complex(a, b, compute=c)
+        plain = lambda c, a=a, b=b: KM.tall_apply_complex_plain(a, b,
+                                                                compute=c)
+        line = compare("tall_apply_complex", [m, k, n], kern, plain,
+                       bf16=True)
+        for c in (None, "bfloat16"):
+            check(torch.equal(kern(c), kern(c)),
+                  f"tall_apply_complex {[m, k, n]} {c}: a second call differs")
+        line["repeats_bitwise"] = True
+        if main:
+            measure("tall_apply_complex", line, kern, plain,
+                    lambda a=a, b=b: torch.matmul(a, b), 8 * m * k * n,
+                    8 * (m * k + k * n + m * n))
+        emit(line)
+    # rSVD's projection q_t.conj() @ vh_small.T: a conj view of A and a
+    # transposed slice of B, read through their conj bits and strides
+    a, vh = crandn(82944, 72), crandn(72, 72)[:64]
+    line = compare("tall_apply_complex", [82944, 72, 64],
+                   lambda c: KM.tall_apply_complex(a.conj(), vh.T, compute=c),
+                   lambda c: KM.tall_apply_complex_plain(a.conj(), vh.T,
+                                                         compute=c),
+                   bf16=True)
+    line["operands"] = "a.conj(), vh[:64].T"
+    emit(line)
 
     # -- tiled_matmul: C = op(A) B, split-K --------------------------------
     for m, k, n, trans, main in [(72, 82944, 72, True, True),
@@ -383,16 +417,13 @@ def phase_wrappers(torch):
                   for _ in range(2))
         return torch.complex(re, im)
 
-    # -- planar_matmul: complex A B as one doubled real tall-apply ----------
+    # -- planar_matmul: complex A B as one tall_apply_complex launch,
+    #    against the reference's planar form in plain torch
     m, k, n = 82944, 72, 72
     a, b = crandn(m, k), crandn(k, n)
 
     def planar_plain():
-        a2 = torch.cat([a.real, a.imag], dim=1)
-        b2 = torch.cat([torch.cat([b.real, b.imag], dim=1),
-                        torch.cat([-b.imag, b.real], dim=1)], dim=0)
-        c2 = KM.tall_apply_plain(a2, b2)
-        return torch.complex(c2[:, :n], c2[:, n:])
+        return KM.tall_apply_complex_plain(a, b)
 
     line = held(torch, "planar_matmul", [m, k, n], KM.planar_matmul(a, b),
                 planar_plain(), TOL_F32, dtype="complex64")
@@ -659,7 +690,7 @@ def _as_pair(z: complex):
 def phase_main_path(torch, np):
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.gram import gram, gram_complex
-    from repro_torch.kernels.matvec import tall_apply
+    from repro_torch.kernels.matvec import tall_apply, tall_apply_complex
     from repro_torch.kernels.tiled_matmul import tiled_matmul
 
     rng = np.random.default_rng(SEED)
@@ -668,13 +699,15 @@ def phase_main_path(torch, np):
 
     # the kernel run: every count starts at 0 and is read right after
     dispatch.reset_dispatch_stats()
-    for fn in (gram, gram_complex, tall_apply, tiled_matmul):
+    for fn in (gram, gram_complex, tall_apply, tall_apply_complex,
+               tiled_matmul):
         fn.launches = 0
     kern, state = run_main_path(torch, torch.complex64, "kernel", thetas,
                                 bits_list)
     counters = dispatch.dispatch_stats()
     launches = {"gram": gram.launches, "gram_complex": gram_complex.launches,
                 "tall_apply": tall_apply.launches,
+                "tall_apply_complex": tall_apply_complex.launches,
                 "tiled_matmul": tiled_matmul.launches}
 
     dense, _ = run_main_path(torch, torch.complex64, "dense", thetas, bits_list)
@@ -714,12 +747,13 @@ def phase_main_path(torch, np):
                  "zipup_first_twolayer"):
         check(counters[f"kernel_{site}_calls"] > 0,
               f"site {site} never ran through a kernel")
-    # complex64 throughout: every Gram is one gram_complex launch, so the
-    # real Gram and the tiled GEMM (the planar form's parts) never run
-    for name in ("gram_complex", "tall_apply"):
+    # complex64 throughout: every Gram is one gram_complex launch and every
+    # tall-apply one tall_apply_complex launch, so the real kernels (the
+    # planar forms' parts) never run
+    for name in ("gram_complex", "tall_apply_complex"):
         check(launches[name] > 0,
               f"kernel {name} was never launched on the main path")
-    for name in ("gram", "tiled_matmul"):
+    for name in ("gram", "tall_apply", "tiled_matmul"):
         check(launches[name] == 0,
               f"kernel {name} ran {launches[name]} times on the c64 main path")
     return launches, state
@@ -733,14 +767,14 @@ def phase_profile(torch, state):
     from repro_torch.core.bmps import BMPS, norm_squared
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.gram import gram_complex
-    from repro_torch.kernels.matvec import tall_apply
+    from repro_torch.kernels.matvec import tall_apply_complex
 
     option = BMPS.randomized(CHI, niter=4, oversample=8)
     prev = dispatch.set_kernel_backend("kernel")
     try:
         norm_squared(state, option)
         torch.cuda.synchronize()
-        gram_complex.launches = tall_apply.launches = 0
+        gram_complex.launches = tall_apply_complex.launches = 0
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -750,8 +784,9 @@ def phase_profile(torch, state):
     finally:
         dispatch.set_kernel_backend(prev)
     emit({"phase": "profile", "what": "norm_squared, complex64, kernel mode",
-          "launches_per_norm": {"gram_complex": gram_complex.launches,
-                                "tall_apply": tall_apply.launches},
+          "launches_per_norm": {
+              "gram_complex": gram_complex.launches,
+              "tall_apply_complex": tall_apply_complex.launches},
           **device_profile(prof, wall)})
 
 
@@ -1091,6 +1126,9 @@ def main() -> int:
                                 "src/repro/kernels/gram.py:82"),
                "tall_apply": ("src/repro_torch/kernels/csrc/tall_apply.cu",
                               "src/repro/kernels/matvec.py:34"),
+               "tall_apply_complex": (
+                   "src/repro_torch/kernels/csrc/tall_apply.cu",
+                   "src/repro/kernels/matvec.py:92"),
                "tiled_matmul": ("src/repro_torch/kernels/csrc/tiled_matmul.cu",
                                 "src/repro/kernels/tiled_matmul.py:26"),
                "flash_attention": (

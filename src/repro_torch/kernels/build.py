@@ -11,6 +11,7 @@ loads the existing library.  Nothing is built when this module is imported:
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -23,7 +24,6 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("gram.cu", "tall_apply.cu", "tiled_matmul.cu", "flash_attention.cu",
            "ssd_scan.cu")
-HEADERS = ("tile.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_kernels.so"
@@ -35,8 +35,9 @@ _SIGNATURES = {
     "repro_gram_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_gram_c64": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_gram_splits": (_I, _I, _I),
-    "repro_tall_apply_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "repro_tall_apply_smem_bytes": (_I,),
+    "repro_tall_apply_f32": (_P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I, _P),
+    "repro_tall_apply_c64": (_P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I, _I,
+                             _I, _P),
     "repro_tiled_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P) + (_I,) * 8 + (_L,) * 12 + (_P,),
     "repro_ssd_scan": (_P,) * 6 + (_I,) * 6 + (_L,) * 8 + (_P,),
@@ -63,7 +64,7 @@ def nvcc_path() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -133,6 +134,14 @@ def check(err: int, kernel: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
                            f"cudaError {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The card's number of streaming multiprocessors (the kernels plan
+    their grids from it)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(device) -> int:

@@ -11,8 +11,6 @@ and imaginary parts) to bf16; accumulation stays f32.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.kernels import build
@@ -41,11 +39,6 @@ def gram_complex_plain(a: torch.Tensor, compute=None) -> torch.Tensor:
     return torch.complex(re, x - x.T)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _launch(fn: str, x: torch.Tensor, out_dtype, floats: int, compute,
             name: str) -> torch.Tensor:
     """Run ``csrc/gram.cu`` on row-major ``x`` (M, N) of ``floats`` f32 per
@@ -54,7 +47,7 @@ def _launch(fn: str, x: torch.Tensor, out_dtype, floats: int, compute,
     the split over M from the card's SM count."""
     m, n = x.shape
     lib = build.library()
-    sms = _sm_count(x.device)
+    sms = build.sm_count(x.device)
     work = torch.empty((lib.repro_gram_splits(m, n, sms),
                         n * (n + 1) // 2 * floats),
                        dtype=torch.float32, device=x.device)

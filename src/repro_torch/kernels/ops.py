@@ -5,8 +5,9 @@ site of :mod:`repro_torch.kernels.dispatch`: ``attention`` and ``ssd``.
 The kernel form is the hand-written CUDA kernel (its plain version on a CPU
 tensor), the dense form is the plain version.  Only float32 and bfloat16
 operands reach a kernel (the hard gate); ``auto`` picks the kernel when the
-operand is on CUDA, as the reference picks Pallas on a TPU.  Launches are
-counted as ``kernel_attention_calls`` / ``kernel_ssd_calls``.
+operand is on CUDA, as the reference picks Pallas on a TPU, and for ``ssd``
+only at a shape the kernel takes (``ssd_scan.fits``).  Launches are counted
+as ``kernel_attention_calls`` / ``kernel_ssd_calls``.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.ssd_scan import DTYPES, ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import DTYPES, fits, ssd_scan, ssd_scan_plain
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -39,8 +40,14 @@ def _on_cuda(q, *_, **__) -> bool:
     return q.device.type == "cuda"
 
 
+def _ssd_auto(x, b, c, a, *, chunk: int = 128, **_) -> bool:
+    """On CUDA, and at a shape the kernel takes: a routing decision made
+    before the call, so what the kernel refuses runs dense."""
+    return x.device.type == "cuda" and fits(x.shape[2], b.shape[2], chunk)
+
+
 dispatch.register_kernel("attention", kernel=flash_attention,
                          dense=flash_attention_plain, supported=_supported,
                          auto=_on_cuda)
 dispatch.register_kernel("ssd", kernel=ssd_scan, dense=ssd_scan_plain,
-                         supported=_supported, auto=_on_cuda)
+                         supported=_supported, auto=_ssd_auto)

@@ -85,6 +85,18 @@ def _check(x, b, c, a, chunk) -> None:
                          f"from 16 to {MAX_CHUNK}")
 
 
+def fits(p: int, n: int, chunk: int) -> bool:
+    """True iff the kernel takes head dimension ``p``, state ``n`` and
+    ``chunk``: :func:`ssd_scan`'s limits, and the shared memory the
+    library's own size query asks for within one block's.  The ``ssd``
+    site's ``auto`` mode routes anything else to the dense form."""
+    if p > MAX_HEAD_DIM or n > MAX_STATE or chunk % 16 != 0 \
+            or not 16 <= chunk <= MAX_CHUNK:
+        return False
+    smem = build.library().repro_ssd_scan_smem_bytes(p, n, chunk)
+    return smem <= build.MAX_SMEM_BYTES
+
+
 def ssd_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
              a: torch.Tensor, *, chunk: int = 128, return_state: bool = False):
     """SSD scan over (BH, L, P) inputs with (BH, L, N) B/C and (BH, L) f32

@@ -76,9 +76,76 @@ def test_tall_apply_kernel_matches_plain(cuda, m, k, n, compute):
 
 
 @pytest.mark.cuda
-def test_tall_apply_refuses_a_slab_beyond_shared_memory(cuda):
-    with pytest.raises(ValueError, match="shared memory"):
-        KM.tall_apply(_crand(3, 64, 900), _crand(4, 900, 8))
+def test_tall_apply_takes_any_reduction_depth(cuda):
+    """B is staged over K: K = 900 real and K = 488 complex (beyond the old
+    resident slab's shared memory) run and match the plain versions."""
+    a, b = _crand(3, 64, 900), _crand(4, 900, 8)
+    assert _crel(KM.tall_apply(a, b), KM.tall_apply_plain(a, b)) <= F32_TOL
+    a, b = _c64(30, 64, 488), _c64(32, 488, 8)
+    assert _crel(KM.tall_apply_complex(a, b),
+                 KM.tall_apply_complex_plain(a, b)) <= F32_TOL
+
+
+# the main path's shapes (Q = A P at two heights and two Gram sizes, the
+# projections' N = 64), then odd ones
+TALL_APPLY_COMPLEX_SHAPES = [(82944, 72, 72), (82944, 72, 64), (2304, 72, 72),
+                             (1296, 72, 72), (1, 1, 1), (777, 70, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", TALL_APPLY_COMPLEX_SHAPES)
+@pytest.mark.parametrize("compute", [None, "bfloat16"])
+def test_tall_apply_complex_kernel_matches_plain(cuda, m, k, n, compute):
+    """One launch reads A's c64 storage in place: it matches the plain
+    version, repeats bit for bit, launches no real tall-apply, and
+    allocates only C (no copy of A)."""
+    a, b = _c64(40, m, k), _c64(42, k, n)
+    before = (KM.tall_apply_complex.launches, KM.tall_apply.launches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = KM.tall_apply_complex(a, b, compute=compute)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= got.numel() * 8 + 2**20
+    assert (KM.tall_apply_complex.launches, KM.tall_apply.launches) == \
+        (before[0] + 1, before[1])
+    assert got.dtype == torch.complex64 and got.shape == (m, n)
+    assert _crel(got, KM.tall_apply_complex_plain(a, b, compute)) <= F32_TOL
+    assert torch.equal(KM.tall_apply_complex(a, b, compute=compute), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", [None, "bfloat16"])
+def test_tall_apply_complex_reads_conj_and_strided_views(cuda, compute):
+    """rSVD's projection ``q_t.conj() @ vh_small.T``: a conj view of A, a
+    transposed B and a conj B, read through their strides and conj bits."""
+    a, vh = _c64(50, 3000, 72), _c64(52, 72, 72)[:64]
+    for x, y in ((a.conj(), vh.T), (a, vh.T.conj()), (a.conj(), vh.T.conj()),
+                 (a, _c64(54, 72, 72)[:, :64])):
+        got = KM.tall_apply_complex(x, y, compute=compute)
+        want = KM.tall_apply_complex_plain(x, y, compute)
+        assert _crel(got, want) <= F32_TOL
+        assert _crel(KM.planar_matmul(x, y, compute=compute), want) <= F32_TOL
+
+
+@pytest.mark.cuda
+def test_auto_runs_a_deep_complex_tall_apply_on_the_kernel(cuda):
+    """(200,000 x 488) complex64 in ``auto`` mode through the ``tall_apply``
+    site: the tall-skinny gate routes it to the kernel, which runs it."""
+    from repro_torch.core.orthogonalize import tall_project
+    from repro_torch.kernels import dispatch
+    a, mat = _c64(60, 200000, 488), _c64(62, 488, 488)
+    prev = dispatch.set_kernel_backend("auto")
+    try:
+        dispatch.reset_dispatch_stats()
+        before = KM.tall_apply_complex.launches
+        got = tall_project(a, mat, 1)
+        torch.cuda.synchronize()
+        assert dispatch.dispatch_stats()["kernel_tall_apply_calls"] == 1
+        assert KM.tall_apply_complex.launches == before + 1
+    finally:
+        dispatch.set_kernel_backend(prev)
+    assert _crel(got, a @ mat) <= F32_TOL
 
 
 @pytest.mark.cuda
@@ -258,6 +325,27 @@ def test_ssd_scan_reads_strided_operands(cuda):
     bc = _crand(31, 2, 300, 160)
     b, c = bc[..., :64], bc[..., 80:144]
     got = KS.ssd_scan(x, b, c, a, chunk=128)
+    assert _crel(got, KS.ssd_scan_plain(x, b, c, a, chunk=128)) <= F32_TOL
+
+
+@pytest.mark.cuda
+def test_ssd_auto_routes_what_the_kernel_refuses_dense(cuda):
+    """N = 128 at chunk 128 needs more shared memory than a block has:
+    ``auto`` runs it dense without raising; forced ``kernel`` mode raises."""
+    from repro_torch.kernels import dispatch, ops
+    x, b, c, a = _ssd(45, 2, 256, 64, 128, torch.float32)
+    assert not KS.fits(64, 128, 128) and KS.fits(64, 64, 128)
+    prev = dispatch.set_kernel_backend("auto")
+    try:
+        dispatch.reset_dispatch_stats()
+        got = ops.ssd(x, b, c, a, chunk=128)
+        st = dispatch.dispatch_stats()
+        assert (st["kernel_ssd_calls"], st["dense_ssd_calls"]) == (0, 1)
+        dispatch.set_kernel_backend("kernel")
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.ssd(x, b, c, a, chunk=128)
+    finally:
+        dispatch.set_kernel_backend(prev)
     assert _crel(got, KS.ssd_scan_plain(x, b, c, a, chunk=128)) <= F32_TOL
 
 

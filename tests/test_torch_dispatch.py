@@ -4,6 +4,8 @@ The hard dtype gate holds even when forced, per-site overrides and
 ``forced_dense`` restore, counters tick per decision, and
 ``backend_signature`` tracks every knob.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -175,6 +177,26 @@ def test_tall_project_kernel_form_matches_tensordot():
     dispatch.set_kernel_backend("kernel")
     got = tall_project(a, mat, 2)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
+
+
+def test_auto_sends_a_deep_complex_tall_apply_to_the_kernel():
+    """At (200,000 x 488) complex64 on CUDA the ``tall_apply`` site's auto
+    gate picks the kernel, and the kernel form takes K = 488 (the planar
+    form's doubled K refused it); on the CPU its plain path matches the
+    dense contraction."""
+    site = dispatch._SITES["tall_apply"]
+    a = types.SimpleNamespace(shape=(200_000, 488), dtype=torch.complex64,
+                              device=torch.device("cuda"), dim=lambda: 2)
+    mat = types.SimpleNamespace(shape=(488, 488), dtype=torch.complex64)
+    assert site.supported(a, mat, 1) and site.auto(a, mat, 1)
+    a = _randn(15, 300, 488, dtype=torch.complex64)
+    mat = _randn(16, 488, 488, dtype=torch.complex64)
+    want = torch.tensordot(a, mat, dims=([1], [0]))
+    dispatch.set_kernel_backend("kernel")
+    dispatch.reset_dispatch_stats()
+    got = tall_project(a, mat, 1)
+    assert dispatch.dispatch_stats()["kernel_tall_apply_calls"] == 1
+    assert (torch.linalg.norm(got - want) / torch.linalg.norm(want)) <= 1e-5
 
 
 def test_backend_signature_tracks_every_knob():

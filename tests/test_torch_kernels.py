@@ -163,11 +163,58 @@ def test_bf16_multiplicands_match_reference_kernel(kernel):
 
 def test_wrappers_count_launches_only_on_the_card():
     before = (KG.gram.launches, KG.gram_complex.launches,
-              KM.tall_apply.launches, KT.tiled_matmul.launches)
+              KM.tall_apply.launches, KM.tall_apply_complex.launches,
+              KT.tiled_matmul.launches)
     a = torch.from_numpy(_rand(10, 50, 6))
+    ac = torch.from_numpy(_rand(10, 50, 6, complex_=True))
     KG.gram(a)
-    KG.gram_complex(torch.from_numpy(_rand(10, 50, 6, complex_=True)))
+    KG.gram_complex(ac)
     KM.tall_apply(a, a.T.contiguous())
+    KM.tall_apply_complex(ac, ac.T.contiguous())
+    KM.planar_matmul(ac, ac.T)
     KT.tiled_matmul(a.T, a)
     assert (KG.gram.launches, KG.gram_complex.launches,
-            KM.tall_apply.launches, KT.tiled_matmul.launches) == before
+            KM.tall_apply.launches, KM.tall_apply_complex.launches,
+            KT.tiled_matmul.launches) == before
+
+
+# (case, M, K, N): a c64 product, a conj view of A, a transposed (strided)
+# B, bf16 multiplicands, and K = 500, above the planar form's old limit of
+# 440 complex k (its doubled real slab no longer fit in shared memory)
+TALL_APPLY_COMPLEX_CASES = [("c64", 300, 24, 20), ("conj_a", 150, 36, 12),
+                            ("strided_b", 150, 36, 12),
+                            ("bfloat16", 256, 40, 24), ("k500", 64, 500, 12)]
+
+
+@pytest.mark.parametrize("case,m,k,n", TALL_APPLY_COMPLEX_CASES)
+def test_tall_apply_complex_matches_reference_planar_matmul(case, m, k, n):
+    """``tall_apply_complex_plain``, the CPU path of ``tall_apply_complex``
+    and ``planar_matmul`` against the reference's ``planar_matmul`` in
+    interpret mode, on the same numpy inputs: the same f32 products summed
+    in another order."""
+    a, b = _rand(20, m, k, complex_=True), _rand(21, k, n, complex_=True)
+    compute = "bfloat16" if case == "bfloat16" else None
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    if case == "conj_a":
+        ta, a = ta.conj(), a.conj()
+    if case == "strided_b":
+        tb = torch.from_numpy(np.ascontiguousarray(b.T)).T
+        assert tb.stride() == (1, k)
+    want = np.asarray(RM.planar_matmul(jnp.asarray(a), jnp.asarray(b),
+                                       interpret=True, compute=compute))
+    for got in (KM.tall_apply_complex_plain(ta, tb, compute),
+                KM.tall_apply_complex(ta, tb, compute=compute),
+                KM.planar_matmul(ta, tb, compute=compute)):
+        assert got.dtype == torch.complex64 and got.shape == (m, n)
+        assert _rel(got.numpy(), want) <= F32_TOL
+    if compute is not None:   # engaged, and within the bf16 budget
+        err = _rel(got.numpy(), a.astype(np.complex128) @ b)
+        assert 1e-5 < err <= 2e-2, err
+
+
+def test_tall_apply_complex_refuses_other_dtypes():
+    a = torch.from_numpy(_rand(22, 20, 4, complex_=True))
+    with pytest.raises(TypeError, match="complex64"):
+        KM.tall_apply_complex(a.to(torch.complex128), a.T)
+    with pytest.raises(TypeError, match="complex64"):
+        KM.tall_apply_complex(a, a.real.T)

@@ -287,3 +287,31 @@ def test_ops_sites_count_and_gate():
     st = dispatch.dispatch_stats()
     assert (st["kernel_attention_calls"], st["dense_attention_calls"]) == (1, 1)
     assert (st["kernel_ssd_calls"], st["dense_ssd_calls"]) == (1, 1)
+
+
+class _SmemQuery:
+    """Stands in for the kernel library: ``repro_ssd_scan_smem_bytes`` as
+    ``csrc/ssd_scan.cu`` computes it, so that no ``nvcc`` is needed."""
+
+    @staticmethod
+    def repro_ssd_scan_smem_bytes(p, n, chunk):
+        ldt = chunk + 1
+        return 4 * (2 * n * ldt + chunk * ldt + chunk * p + n * p + 3 * chunk)
+
+
+@pytest.mark.parametrize("p,n,chunk,takes", [
+    (64, 64, 128, True),       # Zamba2's state: 182,784 bytes
+    (64, 128, 128, False),     # mamba2's state at chunk 128: 265,216 bytes
+    (64, 128, 64, True),       # the same state at chunk 64
+    (80, 64, 128, False),      # P above MAX_HEAD_DIM
+    (64, 64, 100, False),      # chunk not a multiple of 16
+])
+def test_ssd_fits_asks_the_library_size_query(monkeypatch, p, n, chunk,
+                                              takes):
+    """``fits`` applies the wrapper's limits and the library's own
+    shared-memory query against one block's limit: the ``ssd`` site's
+    ``auto`` mode sends what it refuses to the dense form."""
+    from repro_torch.kernels import build, ssd_scan as KS
+    assert _SmemQuery.repro_ssd_scan_smem_bytes(64, 128, 128) == 265216
+    monkeypatch.setattr(build, "library", lambda: _SmemQuery)
+    assert KS.fits(p, n, chunk) is takes
