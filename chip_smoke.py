@@ -129,14 +129,24 @@ def rel(a, b) -> float:
 # Kernels that must build without spills: (pattern of the mangled name,
 # label, instantiations).  flash_mma_kernel<DP>: one per padded head
 # dimension 16, 32, ..., 128; the Gram kernels: <complex, bf16>; the
-# tall-apply: <complex, bf16, conj B>, 4 complex and 2 real.
+# tall-apply: <complex, bf16, conj B>, 4 complex and 2 real; the
+# chunk-parallel bf16 SSD kernels: the two tile kernels for P in 1, 2 or 4
+# and N in 1, 2, 4 or 8 tiles of 16, and the state pass.
 NO_SPILL_KERNELS = ((r"flash_mma_kernelILi(\d+)E", "flash_mma_kernel<{}>", 8),
                     (r"gram_tile_kernelILb(\d)ELb(\d)E",
                      "gram_tile_kernel<{},{}>", 4),
                     (r"gram_reduce_kernelILb(\d)E", "gram_reduce_kernel<{}>",
                      2),
                     (r"tall_apply_kernelILb(\d)ELb(\d)ELb(\d)E",
-                     "tall_apply_kernel<{},{},{}>", 6))
+                     "tall_apply_kernel<{},{},{}>", 6),
+                    (r"ssd_chunk_state_kernelILi(\d)ELi(\d)E",
+                     "ssd_chunk_state_kernel<{},{}>", 12),
+                    (r"ssd_state_pass_kernel", "ssd_state_pass_kernel", 1),
+                    (r"ssd_chunk_out_kernelILi(\d)ELi(\d)E",
+                     "ssd_chunk_out_kernel<{},{}>", 12))
+# The SSD kernels of a bf16 prefill (each launched once per ssd_scan call).
+SSD_BF16_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                    "ssd_chunk_out_kernel")
 
 
 def no_spill_ptxas(log: str) -> dict:
@@ -560,7 +570,8 @@ def phase_lm_kernels(torch):
           f"the probe cannot see the third")
     emit(line)
 
-    # -- ssd_scan: the served shape (B * H = 4 * 80 series), then a ragged
+    # -- ssd_scan: the served shape (B * H = 4 * 80 series), mamba2-2.7b's
+    #    state N = 128 at the same batch and prompt, then f32 and a ragged
     #    last chunk; the final state is held in every case
     def ssd_inputs(bh, length, p, n, dtype):
         return (randn(bh, length, p, dtype=dtype),
@@ -568,31 +579,50 @@ def phase_lm_kernels(torch):
                 randn(bh, length, n, dtype=dtype, scale=0.5),
                 -0.1 * randn(bh, length).abs())
 
-    for bh, length, dtype, main in ((LM_BATCH * 80, LM_PROMPT, torch.bfloat16,
-                                     True),
-                                    (LM_BATCH * 80, LM_PROMPT, torch.float32,
-                                     False),
-                                    (8, 1000, torch.float32, False)):
-        p, n, chunk = 64, 64, 128
+    for bh, length, n, dtype, main in (
+            (LM_BATCH * 80, LM_PROMPT, 64, torch.bfloat16, True),
+            (LM_BATCH * 80, LM_PROMPT, 128, torch.bfloat16, False),
+            (LM_BATCH * 80, LM_PROMPT, 64, torch.float32, False),
+            (8, 1000, 64, torch.float32, False)):
+        p, chunk = 64, 128
+        bf16 = dtype == torch.bfloat16
         args = ssd_inputs(bh, length, p, n, dtype)
         kern = lambda a=args: KS.ssd_scan(*a, chunk=chunk, return_state=True)
         plain = lambda a=args: KS.ssd_scan_plain(*a, chunk=chunk,
                                                  return_state=True)
         (y, st), (y0, st0) = kern(), plain()
         line = held(torch, "ssd_scan", [bh, length, p, n], y, y0,
-                    TOL_BF16_OUT if dtype == torch.bfloat16 else TOL_F32,
+                    TOL_BF16_OUT if bf16 else TOL_F32,
                     dtype=str(dtype).replace("torch.", ""), chunk=chunk)
         st_line = held(torch, "ssd_scan final state", [bh, n, p], st, st0,
                        TOL_F32)
         line["state_rel_err"] = st_line["rel_err"]
+        y2, st2 = kern()
+        check(torch.equal(y2, y) and torch.equal(st2, st),
+              f"ssd_scan {line['shape']} {line['dtype']}: a second call "
+              f"differs")
+        line["repeats_bitwise"] = True
+        del y2, st2
         if main:
+            # The f32 contract, where it can be seen: the plain version
+            # with its three f32 operands rounded to bf16 (the witness).
+            witness = rel_gap(torch, KS.ssd_scan_split_plain(
+                *args, chunk=chunk, pieces=1), y0)
+            line["witness_bf16_operands_vs_plain"] = witness
+            check(line["rel_err"] <= WITNESS_SHARE * witness,
+                  f"ssd_scan bf16 {line['shape']}: kernel vs plain "
+                  f"{line['rel_err']} > {WITNESS_SHARE} x the bf16-operand "
+                  f"witness {witness}")
+        if bf16:
             cb, other, nbytes = ssd_flops_bytes(bh, length, p, n, chunk,
                                                 dtype.itemsize, True)
             measure_line(torch, line, kern, plain, None, 0.0, nbytes,
                          bf16_flops=cb, mixed_flops=other)
             line["library_note"] = ("no single PyTorch call computes the SSD "
                                     "scan")
-            summary["ssd_scan"] = line
+            if main:
+                summary["ssd_scan"] = line
+        del y, st, y0, st0
         emit(line)
     return summary
 
@@ -790,9 +820,10 @@ def phase_profile(torch, state):
           **device_profile(prof, wall)})
 
 
-def device_profile(prof, wall: float):
+def device_profile(prof, wall: float, focus=()):
     """Device time by kernel from a torch.profiler run over ``wall``
-    seconds, and the device's busy share of that wall time."""
+    seconds, and the device's busy share of that wall time; every kernel
+    whose name holds one of the ``focus`` words is listed as well."""
     rows = []
     for evt in prof.key_averages():
         if not str(evt.device_type).endswith("CUDA"):
@@ -803,10 +834,15 @@ def device_profile(prof, wall: float):
         rows.append((us, evt.key, evt.count))
     rows.sort(reverse=True)
     device_s = sum(r[0] for r in rows) / 1e6
-    return {"wall_s": wall, "device_s": device_s,
-            "device_busy_share": device_s / wall if wall > 0 else None,
-            "top": [{"name": k[:100], "calls": c, "device_ms": us / 1e3}
-                    for us, k, c in rows[:15]]}
+    def row(us, k, c):
+        return {"name": k[:100], "calls": c, "device_ms": us / 1e3}
+
+    out = {"wall_s": wall, "device_s": device_s,
+           "device_busy_share": device_s / wall if wall > 0 else None,
+           "top": [row(*r) for r in rows[:15]]}
+    if focus:
+        out["focus"] = [row(*r) for r in rows if any(w in r[1] for w in focus)]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -928,9 +964,18 @@ def phase_lm_serve(torch, np):
                                  ProfilerActivity.CUDA]) as prof:
             _, _, wall = prefill_in(torch, T, "kernel", params, cfg, tokens,
                                     max_seq)
-        emit({"phase": "lm_profile", "what": "one kernel-mode prefill, "
-              f"{LM_BATCH} x {LM_PROMPT} tokens, bf16",
-              **device_profile(prof, wall)})
+        prof_line = {"phase": "lm_profile", "what": "one kernel-mode "
+                     f"prefill, {LM_BATCH} x {LM_PROMPT} tokens, bf16",
+                     **device_profile(prof, wall, focus=("ssd_",))}
+        prof_line["ssd_device_ms"] = sum(r["device_ms"]
+                                         for r in prof_line["focus"])
+        emit(prof_line)
+        n_ssd = n_groups * (cfg.hybrid_group - 1)
+        for name in SSD_BF16_KERNELS:
+            calls = sum(r["calls"] for r in prof_line["focus"]
+                        if name in r["name"])
+            check(calls == n_ssd, f"lm_profile: {name} ran {calls} times in "
+                  f"a prefill, not {n_ssd}")
         step_cache = {k: v.clone() if torch.is_tensor(v) else v
                       for k, v in cache.items()}
         step_cache["index"] = LM_PROMPT
@@ -1102,7 +1147,7 @@ def main() -> int:
     try:
         for _, label, count in NO_SPILL_KERNELS:
             found = {k: v for k, v in no_spill.items()
-                     if k.startswith(label.split("<")[0] + "<")}
+                     if k.split("<")[0] == label.split("<")[0]}
             check(len(found) == count and all(
                 f.get("spill_stores") == 0 and f.get("spill_loads") == 0
                 for f in found.values()),

@@ -24,6 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("gram.cu", "tall_apply.cu", "tiled_matmul.cu", "flash_attention.cu",
            "ssd_scan.cu")
+HEADERS = ("mma_bf16.cuh",)     # included by the flash and SSD sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_kernels.so"
@@ -40,8 +41,10 @@ _SIGNATURES = {
                              _I, _P),
     "repro_tiled_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_flash_attention": (_P, _P, _P, _P) + (_I,) * 8 + (_L,) * 12 + (_P,),
-    "repro_ssd_scan": (_P,) * 6 + (_I,) * 6 + (_L,) * 8 + (_P,),
+    "repro_ssd_scan": (_P,) * 6 + (_I,) * 5 + (_L,) * 8 + (_P,),
+    "repro_ssd_scan_bf16": (_P,) * 8 + (_I,) * 5 + (_L,) * 8 + (_P,),
     "repro_ssd_scan_smem_bytes": (_I, _I, _I),
+    "repro_ssd_chunked_smem_bytes": (_I, _I, _I),
 }
 
 # Shared memory one block may use on the H100 (bytes, dynamic).
@@ -64,7 +67,7 @@ def nvcc_path() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

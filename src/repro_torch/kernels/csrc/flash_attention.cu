@@ -56,9 +56,7 @@
 // tile (4 x D/16 per thread) in registers until the end, and P goes through
 // shared memory in f32.  Masking, the causal stop, GQA and strides are as
 // above.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_bf16.cuh"
 
 namespace repro {
 namespace flash {
@@ -212,75 +210,15 @@ int smem_bytes_f32(int d) {
 }
 
 // --------------------------------------------------------------- bf16 ----
-using bf16 = __nv_bfloat16;
 constexpr int MMA_WARPS = 4;
 constexpr int MMA_BQ = 16 * MMA_WARPS;      // query rows per block, 16 a warp
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !valid (src-size 0:
-// nothing is read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), c 16 x 8 f32.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
 // (x, y) rounded to bf16 once more after an f32 product with `scale`.
 __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t r, float scale) {
   const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&r));
   return bits(__floats2bfloat162_rn(f.x * scale, f.y * scale));
-}
-
-// The exact split of f32 (x, y): hi + mid + lo = (x, y), each a bf16 pair
-// (x in the low half, the lower column of an mma fragment).
-__device__ __forceinline__ void split3(float x, float y, uint32_t& hi,
-                                       uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  const float rx = x - hf.x, ry = y - hf.y;
-  const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
-  const float2 mf = __bfloat1622float2(m);
-  hi = bits(h);
-  mid = bits(m);
-  lo = bits(__floats2bfloat162_rn(rx - mf.x, ry - mf.y));
 }
 
 // Rows [row0, row0 + ROWS) of a (rows x d) operand into a [ROWS][DP + 8]

@@ -17,59 +17,110 @@
 // operands, which bf16 tensor cores with f32 accumulation multiply exactly
 // (989 TFLOP/s); the other three pair an f32 operand (the decayed scores,
 // the state, the decay-weighted B) with a bf16 input, which the tensor
-// cores can do exactly as three bf16 products (the f32 operand split into
-// three bf16 pieces, as the bf16 flash kernel does).  At the served Zamba2
-// shape (320 series, L = 2048, N = P = 64) that is 5.4e9 flops in
-// 0.0055 ms and 3 x 1.6e10 in 0.049 ms, 0.054 ms in all, under the
-// 0.1025 ms the 3.4e8 bytes take: bytes bound it.  This kernel does all
-// four products in f32 FMA.
+// cores multiply exactly as three bf16 products (the f32 operand split into
+// three bf16 pieces).  At the served Zamba2 shape (320 series, L = 2048,
+// N = P = 64) that is 5.4e9 flops in 0.0055 ms and 3 x 1.6e10 in 0.049 ms,
+// 0.054 ms in all, under the 0.1025 ms the 3.4e8 bytes take: bytes bound
+// it.
 //
-// Design: the TPU grid's sequential chunk axis becomes a loop inside the
-// block; one block of 256 threads (16 x 16) owns one series, and its f32
-// (N x P) state stays in shared memory for the whole scan (the TPU kernel's
-// VMEM scratch).  Each chunk stages B and C transposed (n-major, odd row
-// stride so the transposing stores are conflict-free), x, and the decay
-// prefix sums (a warp scan in f32) in shared memory; the (T x T) masked
-// score tile C B^T * L goes to shared memory (64 KB at T = 128, hence the
-// dynamic shared-memory attribute), then y and the state update are
-// register-tiled products over it.  exp(cum_i - cum_j) is evaluated only
-// where i >= j: the upper triangle would overflow.  A ragged last chunk is
-// masked here (rows past L read as zero, which leaves the state unchanged:
-// a = 0, B = 0), with no host-side padding.  y is written in x's dtype; the
-// final state, which prefill needs for decode, is written in f32 when asked.
-// Plain FMA in f32: no tensor cores yet.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// bf16 operands: three kernels on one stream, the chunk recurrence carried
+// by a small pass over states (the SSD form of the paper's section 6), so
+// every chunk of every series is a block of its own: 5,120 blocks at the
+// served shape where the TPU grid walks 16 chunks in order.
+// 1. ssd_chunk_state_kernel, one block per (series, chunk), a warp per 16
+//    state rows: Hc = (diag(w) B)^T x with w = exp(total - cum), in f32,
+//    into an (BH, NC, N, P) scratch, and total into a (BH, NC) one.  B and
+//    x are staged with 16-byte cp.async (zeros past L and in the pad
+//    columns up to a multiple of 16; rows padded by 8 bf16 so ldmatrix has
+//    no bank conflicts); cum is a warp scan in f32.  The A fragments of
+//    (w B)^T come from ldmatrix.trans of B, are scaled by w in f32 and split
+//    exactly into three bf16 pieces: three mma.sync m16n8k16 against the
+//    bf16 x fragments, into one f32 accumulator.
+// 2. ssd_state_pass_kernel, one thread per four state entries of a series,
+//    in order over the chunks: h_in[c] = exp(total[c-1]) h_in[c-1] +
+//    Hc[c-1], written over Hc[c] in place (chunk 0's incoming state is 0,
+//    never read), and the final state when asked.
+// 3. ssd_chunk_out_kernel, one block per (series, chunk), flash's structure
+//    with a decay mask in place of the softmax: each warp owns 16 chunk
+//    rows and holds its C rows as A fragments (the row tiles are dealt so
+//    that each of the SM's four sub-partitions gets the same number of
+//    causal steps).
+//    - C h_in: h_in is staged from the scratch with cp.async beside the
+//      inputs, split once into three bf16 tiles in shared memory, and
+//      multiplied as three products against the bf16 C; exp(cum_i) scales
+//      the f32 accumulator rows afterwards.
+//    - (C B^T * L) x, 16 keys a step, only the steps on or below the
+//      diagonal: S = C B^T on mma.sync, then exp(cum_i - cum_j) applied in
+//      f32 where i >= j (the upper triangle would overflow) and 0 above;
+//      the two n8 accumulator tiles of S are the A fragment of the next
+//      k16 step, split three ways against x (ldmatrix.trans), smallest piece
+//      first, so S never touches shared memory.
+//    - y is rounded to bf16; rows past L are not written.
+// A ragged last chunk needs no host-side padding: rows past L read as zero
+// (a = 0, B = C = x = 0), which leaves the state unchanged.  No atomics:
+// every sum has a fixed order and runs repeat bit for bit.
+//
+// f32 operands (the checking path): ssd_kernel, plain FMA in f32.  The TPU
+// grid's sequential chunk axis is a loop inside the block; one block of 256
+// threads (16 x 16) owns one series, and its f32 (N x P) state stays in
+// shared memory for the whole scan.  Each chunk stages B and C transposed
+// (odd row stride), x and cum; the (T x T) masked score tile goes to shared
+// memory, then y and the state update are register-tiled products over it.
+#include <algorithm>
+
+#include "mma_bf16.cuh"
 
 namespace repro {
 namespace ssd {
 
-constexpr int THREADS = 256;  // 16 x 16
 constexpr int MAX_T = 128;    // chunk length
 constexpr int MAX_P = 64;     // head dimension
 constexpr int MAX_N = 128;    // state size
-constexpr int RT = MAX_T / 16;  // chunk rows per thread (stride 16)
-constexpr int RN = MAX_N / 16;  // state rows per thread (stride 16)
-constexpr int CP = MAX_P / 16;  // head-dim columns per thread (stride 16)
-
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 struct Strides {   // element strides of a (BH, L, *) operand; the last is unit
   long long bh, l;
 };
 
-template <typename T>
+// cum[t] = a[t0] + ... + a[t0 + t] for t < chunk, in f32, steps past len
+// read as 0; called by one whole warp (each lane sums `per` consecutive
+// steps, then the lanes scan).  The caller synchronises before reading it.
+__device__ __forceinline__ void chunk_cumsum(float* cum, const float* ab,
+                                             long long stride, int t0,
+                                             int len, int chunk) {
+  const int lane = threadIdx.x % 32;
+  const int per = (chunk + 31) / 32;
+  float loc[MAX_T / 32];
+  float run = 0.f;
+#pragma unroll
+  for (int e = 0; e < MAX_T / 32; ++e) {
+    const int t = lane * per + e;
+    if (e < per && t < chunk && t0 + t < len) run += ab[(t0 + t) * stride];
+    loc[e] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float up = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += up;
+  }
+  const float before = incl - run;
+#pragma unroll
+  for (int e = 0; e < MAX_T / 32; ++e) {
+    const int t = lane * per + e;
+    if (e < per && t < chunk) cum[t] = before + loc[e];
+  }
+}
+
+// ---------------------------------------------------------------- f32 ----
+constexpr int THREADS = 256;  // 16 x 16
+constexpr int RT = MAX_T / 16;  // chunk rows per thread (stride 16)
+constexpr int RN = MAX_N / 16;  // state rows per thread (stride 16)
+constexpr int CP = MAX_P / 16;  // head-dim columns per thread (stride 16)
+
 __global__ void __launch_bounds__(THREADS)
-ssd_kernel(const T* __restrict__ x, const T* __restrict__ b,
-           const T* __restrict__ c, const float* __restrict__ a,
-           T* __restrict__ y, float* __restrict__ state, int len, int p,
+ssd_kernel(const float* __restrict__ x, const float* __restrict__ b,
+           const float* __restrict__ c, const float* __restrict__ a,
+           float* __restrict__ y, float* __restrict__ state, int len, int p,
            int n, int chunk, Strides xs, Strides bs, Strides cs, Strides as) {
   extern __shared__ float smem[];
   const int ldt = chunk + 1;
@@ -84,12 +135,12 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ b,
 
   const int s = blockIdx.x;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const T* xb = x + s * xs.bh;
-  const T* bb = b + s * bs.bh;
-  const T* cb = c + s * cs.bh;
+  const int warp = threadIdx.x / 32;
+  const float* xb = x + s * xs.bh;
+  const float* bb = b + s * bs.bh;
+  const float* cb = c + s * cs.bh;
   const float* ab = a + s * as.bh;
-  T* yb = y + static_cast<long long>(s) * len * p;
+  float* yb = y + static_cast<long long>(s) * len * p;
 
   for (int idx = threadIdx.x; idx < n * p; idx += THREADS) H[idx] = 0.f;
 
@@ -98,37 +149,14 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ b,
     for (int idx = threadIdx.x; idx < chunk * n; idx += THREADS) {
       const int j = idx / n, nn = idx % n;
       const bool ok = t0 + j < len;
-      Bt[nn * ldt + j] = ok ? load(bb + (t0 + j) * bs.l + nn) : 0.f;
-      Ct[nn * ldt + j] = ok ? load(cb + (t0 + j) * cs.l + nn) : 0.f;
+      Bt[nn * ldt + j] = ok ? bb[(t0 + j) * bs.l + nn] : 0.f;
+      Ct[nn * ldt + j] = ok ? cb[(t0 + j) * cs.l + nn] : 0.f;
     }
     for (int idx = threadIdx.x; idx < chunk * p; idx += THREADS) {
       const int j = idx / p, pp = idx % p;
-      Xs[idx] = t0 + j < len ? load(xb + (t0 + j) * xs.l + pp) : 0.f;
+      Xs[idx] = t0 + j < len ? xb[(t0 + j) * xs.l + pp] : 0.f;
     }
-    if (warp == 0) {   // inclusive prefix sum of a over the chunk, in f32:
-      // each lane sums `per` consecutive steps, then the lanes scan
-      const int per = (chunk + 31) / 32;
-      float loc[MAX_T / 32];
-      float run = 0.f;
-#pragma unroll
-      for (int e = 0; e < MAX_T / 32; ++e) {
-        const int t = lane * per + e;
-        if (e < per && t < chunk && t0 + t < len) run += ab[(t0 + t) * as.l];
-        loc[e] = run;
-      }
-      float incl = run;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float up = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += up;
-      }
-      const float before = incl - run;
-#pragma unroll
-      for (int e = 0; e < MAX_T / 32; ++e) {
-        const int t = lane * per + e;
-        if (e < per && t < chunk) cum[t] = before + loc[e];
-      }
-    }
+    if (warp == 0) chunk_cumsum(cum, ab, as.l, t0, len, chunk);
     __syncthreads();
     const float total = cum[chunk - 1];
     for (int t = threadIdx.x; t < chunk; t += THREADS) {
@@ -210,8 +238,8 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ b,
         for (int q = 0; q < CP; ++q) {
           const int pp = tx + 16 * q;
           if (pp < p)
-            store(yb + static_cast<long long>(t0 + i) * p + pp,
-                  yi[r][q] + ecum[i] * yh[r][q]);
+            yb[static_cast<long long>(t0 + i) * p + pp] =
+                yi[r][q] + ecum[i] * yh[r][q];
         }
       }
     }
@@ -258,53 +286,511 @@ ssd_kernel(const T* __restrict__ x, const T* __restrict__ b,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* b, const void* c, const void* a,
-           void* y, void* state, int bh, int len, int p, int n, int chunk,
-           Strides xs, Strides bs, Strides cs, Strides as, int smem,
-           cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  ssd_kernel<T><<<bh, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<const float*>(a),
-      static_cast<T*>(y), static_cast<float*>(state), len, p, n, chunk, xs, bs,
-      cs, as);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace ssd
-}  // namespace repro
-
-// Shared memory one block needs (bytes).
-extern "C" int repro_ssd_scan_smem_bytes(int p, int n, int chunk) {
+int smem_bytes_f32(int p, int n, int chunk) {
   const int ldt = chunk + 1;
   return (2 * n * ldt + chunk * ldt + chunk * p + n * p + 3 * chunk) *
          static_cast<int>(sizeof(float));
 }
 
-// x: (bh, len, p), b/c: (bh, len, n), all f32 (bf16 = 0) or all bf16
-// (bf16 = 1), unit stride over the last axis and the given element strides
-// over (series, step); a: (bh, len) f32 log-decay; y: (bh, len, p)
-// contiguous, in x's dtype; state: (bh, n, p) f32 contiguous, or null.
-// p <= 64, n <= 128, chunk a multiple of 16 up to 128 and the shared-memory
-// size are checked by the Python wrapper.  Returns cudaGetLastError.
+// --------------------------------------------------------------- bf16 ----
+// The tile kernels are compiled for P padded to PT 16-column tiles and N to
+// NK 16-row tiles, PT in {1, 2, 4} and NK in {1, 2, 4, 8} (the next power
+// of two; the pad is zero-filled), so every fragment loop has fixed bounds.
+constexpr int MAX_THREADS = 32 * (MAX_N / 16);   // = 32 * (MAX_T / 16)
+// Off-diagonal key steps of 16 taken together in one pass of the output
+// kernel's loop (independent products and exponentials to interleave).
+constexpr int KEY_STEPS = 1;
+// The series run in groups whose bytes (the f32 scratch and the bf16 x, B
+// and C) stay under this, so that what the first kernel writes and the
+// last reads can stay in the 50 MB L2; 0: one group.
+constexpr long long GROUP_BYTES = 0;
+
+__host__ __device__ __forceinline__ int tiles16(int v) {
+  int t = 1;
+  while (16 * t < v) t *= 2;
+  return t;
+}
+
+// Rows [t0, t0 + rows) of a (len x d) operand into a [rows][LD] tile of
+// DP columns: 16-byte cp.async copies (d a multiple of 8), zeros past len
+// and in the columns [d, DP).
+template <int DP, int LD>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           long long stride, int t0, int rows,
+                                           int len, int d) {
+  constexpr int CH = DP / 8;
+  for (int idx = threadIdx.x; idx < rows * CH; idx += blockDim.x) {
+    const int r = idx / CH, col = 8 * (idx % CH);
+    const bool ok = t0 + r < len && col < d;
+    cp_async16(dst + r * LD + col, ok ? src + (t0 + r) * stride + col : src,
+               ok);
+  }
+}
+
+// ldmatrix row addresses: lane l supplies row l % 8 of matrix l / 8.  The
+// "a" pattern gives an A fragment from a row-major tile (and, transposed,
+// the B fragments of two n8 tiles from a [k][n] tile); the "b" pattern the
+// B fragments of two n8 tiles from an [n][k] tile (and, transposed, an A
+// fragment from a [k][m] tile).
+__device__ __forceinline__ int a_row(int lane) { return (lane & 7) + 8 * ((lane >> 3) & 1); }
+__device__ __forceinline__ int a_col(int lane) { return 8 * (lane >> 4); }
+__device__ __forceinline__ int b_row(int lane) { return (lane & 7) + 8 * (lane >> 4); }
+__device__ __forceinline__ int b_col(int lane) { return 8 * ((lane >> 3) & 1); }
+
+// acc[nt] += (lo + mid + hi) B for the 2 PT n8 tiles, the B fragments of
+// tile pair dp in bf[dp].  The pieces go smallest first, each over every
+// tile before the next, so neighbouring mma.sync write different
+// accumulators.
+template <int PT>
+__device__ __forceinline__ void mma_pieces(float (&acc)[2 * PT][4],
+                                           const uint32_t (&lo)[4],
+                                           const uint32_t (&mid)[4],
+                                           const uint32_t (&hi)[4],
+                                           const uint32_t (&bf)[PT][4]) {
+#pragma unroll
+  for (int piece = 0; piece < 3; ++piece) {
+    const uint32_t(&a)[4] = piece == 0 ? lo : piece == 1 ? mid : hi;
+#pragma unroll
+    for (int dp = 0; dp < PT; ++dp) {
+      mma_bf16(acc[2 * dp], a, bf[dp][0], bf[dp][1]);
+      mma_bf16(acc[2 * dp + 1], a, bf[dp][2], bf[dp][3]);
+    }
+  }
+}
+
+template <int PT, int NK>
+__global__ void __launch_bounds__(MAX_THREADS)
+ssd_chunk_state_kernel(const bf16* __restrict__ x, const bf16* __restrict__ b,
+                       const float* __restrict__ a, float* __restrict__ hc,
+                       float* __restrict__ totals, int len, int p, int n,
+                       int chunk, Strides xs, Strides bs, Strides as) {
+  constexpr int LDB = 16 * NK + 8, LDX = 16 * PT + 8;
+  extern __shared__ __align__(16) unsigned char ssd_smem[];
+  bf16* Bs = reinterpret_cast<bf16*>(ssd_smem);              // [chunk][LDB]
+  bf16* Xs = Bs + chunk * LDB;                               // [chunk][LDX]
+  float* cum = reinterpret_cast<float*>(Xs + chunk * LDX);   // [chunk]
+  float* w = cum + chunk;                                    // [chunk]
+
+  const int s = blockIdx.x, ci = blockIdx.y, nc = gridDim.y;
+  const int t0 = ci * chunk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;   // fragment row, column pair
+  stage_rows<16 * NK, LDB>(Bs, b + s * bs.bh, bs.l, t0, chunk, len, n);
+  stage_rows<16 * PT, LDX>(Xs, x + s * xs.bh, xs.l, t0, chunk, len, p);
+  cp_async_commit();
+  if (warp == 0) chunk_cumsum(cum, a + s * as.bh, as.l, t0, len, chunk);
+  __syncthreads();
+  const float total = cum[chunk - 1];
+  for (int j = threadIdx.x; j < chunk; j += blockDim.x)
+    w[j] = expf(total - cum[j]);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // this warp's state rows [m0, m0 + 16) times all P columns
+  const int m0 = 16 * warp;
+  float acc[2 * PT][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * PT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  for (int k0 = 0; k0 < chunk; k0 += 16) {
+    // A[m][k] = w_k B[k][m]: ldmatrix.trans of the [k][n] tile; a0, a1
+    // hold steps k0 + 2t, k0 + 2t + 1, a2, a3 the same plus 8
+    uint32_t bf[4], hi[4], mid[4], lo[4];
+    ldmatrix_x4_trans(bf, Bs + (k0 + b_row(lane)) * LDB + m0 + b_col(lane));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = k0 + 2 * t + 8 * (e >> 1);
+      const float2 v = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&bf[e]));
+      split3(v.x * w[k], v.y * w[k + 1], hi[e], mid[e], lo[e]);
+    }
+    uint32_t xf[PT][4];
+#pragma unroll
+    for (int dp = 0; dp < PT; ++dp)
+      ldmatrix_x4_trans(xf[dp], Xs + (k0 + a_row(lane)) * LDX + 16 * dp + a_col(lane));
+    mma_pieces<PT>(acc, lo, mid, hi, xf);
+  }
+
+  float* out = hc + (static_cast<long long>(s) * nc + ci) * n * p;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + g + 8 * r;
+    if (row >= n) continue;
+#pragma unroll
+    for (int nt = 0; nt < 2 * PT; ++nt) {
+      const int col = 8 * nt + 2 * t;
+      if (col < p)
+        *reinterpret_cast<float2*>(out + row * p + col) =
+            make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
+    }
+  }
+  if (threadIdx.x == 0) totals[static_cast<long long>(s) * nc + ci] = total;
+}
+
+// hc: (bh, nc, n p) f32 holding each chunk's own contribution Hc; on return
+// hc[:, c] holds chunk c's incoming state for c >= 1.  One thread per four
+// consecutive entries of one series (n p a multiple of 4); the loads of
+// PASS_BATCH chunks are issued before any of their stores, so each thread
+// keeps that many in flight.
+constexpr int PASS_BATCH = 8;
+
+__global__ void __launch_bounds__(256)
+ssd_state_pass_kernel(float* __restrict__ hc, const float* __restrict__ totals,
+                      float* __restrict__ state, int bh, int nc, int np4) {
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<long long>(bh) * np4) return;
+  const int s = static_cast<int>(idx / np4), e = static_cast<int>(idx % np4);
+  float4* col = reinterpret_cast<float4*>(hc) + static_cast<long long>(s) * nc * np4 + e;
+  const float* tot = totals + static_cast<long long>(s) * nc;
+  float4 h = col[0];          // the state after chunk 0: exp(total) 0 + Hc[0]
+  for (int c0 = 1; c0 < nc; c0 += PASS_BATCH) {
+    float4 own[PASS_BATCH];
+    float d[PASS_BATCH];
+#pragma unroll
+    for (int k = 0; k < PASS_BATCH; ++k)
+      if (c0 + k < nc) {
+        own[k] = col[static_cast<long long>(c0 + k) * np4];
+        d[k] = expf(tot[c0 + k]);
+      }
+#pragma unroll
+    for (int k = 0; k < PASS_BATCH; ++k)
+      if (c0 + k < nc) {
+        col[static_cast<long long>(c0 + k) * np4] = h;
+        h.x = __fadd_rn(__fmul_rn(d[k], h.x), own[k].x);
+        h.y = __fadd_rn(__fmul_rn(d[k], h.y), own[k].y);
+        h.z = __fadd_rn(__fmul_rn(d[k], h.z), own[k].z);
+        h.w = __fadd_rn(__fmul_rn(d[k], h.w), own[k].w);
+      }
+  }
+  if (state != nullptr)
+    reinterpret_cast<float4*>(state)[static_cast<long long>(s) * np4 + e] = h;
+}
+
+// y += (C B^T * L) x over the K key steps [j0, j0 + 16 K) of the warp's 16
+// rows from i0; `diag` masks the upper triangle (the step j0 = i0).
+template <int K, int PT, int NK>
+__device__ __forceinline__ void causal_steps(float (&acc)[2 * PT][4],
+                                             const uint32_t (&cf)[NK][4],
+                                             const bf16* Bs, const bf16* Xs,
+                                             const float* cum,
+                                             const float (&cum_i)[2], int i0,
+                                             int j0, bool diag, int lane) {
+  constexpr int LDB = 16 * NK + 8, LDX = 16 * PT + 8;
+  const int g = lane / 4, t = lane % 4;
+  float sc[2 * K][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * K; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      uint32_t kf[4];
+      ldmatrix_x4(kf, Bs + (j0 + 16 * k + b_row(lane)) * LDB + 16 * kk + b_col(lane));
+      mma_bf16(sc[2 * k], cf[kk], kf[0], kf[1]);
+      mma_bf16(sc[2 * k + 1], cf[kk], kf[2], kf[3]);
+    }
+  // decay, rows i0 + g (e = 0, 1) and i0 + g + 8 (e = 2, 3)
+#pragma unroll
+  for (int nt = 0; nt < 2 * K; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + g + 8 * (e >> 1), j = j0 + 8 * nt + 2 * t + (e & 1);
+      const float v = sc[nt][e] * expf(cum_i[e >> 1] - cum[j]);
+      sc[nt][e] = diag && i < j ? 0.f : v;
+    }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    uint32_t hi[4], mid[4], lo[4];
+    split3(sc[2 * k][0], sc[2 * k][1], hi[0], mid[0], lo[0]);
+    split3(sc[2 * k][2], sc[2 * k][3], hi[1], mid[1], lo[1]);
+    split3(sc[2 * k + 1][0], sc[2 * k + 1][1], hi[2], mid[2], lo[2]);
+    split3(sc[2 * k + 1][2], sc[2 * k + 1][3], hi[3], mid[3], lo[3]);
+    uint32_t xf[PT][4];
+#pragma unroll
+    for (int dp = 0; dp < PT; ++dp)
+      ldmatrix_x4_trans(xf[dp], Xs + (j0 + 16 * k + a_row(lane)) * LDX + 16 * dp + a_col(lane));
+    mma_pieces<PT>(acc, lo, mid, hi, xf);
+  }
+}
+
+template <int PT, int NK>
+__global__ void __launch_bounds__(MAX_THREADS)
+ssd_chunk_out_kernel(const bf16* __restrict__ x, const bf16* __restrict__ b,
+                     const bf16* __restrict__ c, const float* __restrict__ a,
+                     const float* __restrict__ hin, bf16* __restrict__ y,
+                     int len, int p, int n, int chunk, Strides xs, Strides bs,
+                     Strides cs, Strides as) {
+  constexpr int PP = 16 * PT, NP = 16 * NK, LDB = NP + 8, LDX = PP + 8;
+  extern __shared__ __align__(16) unsigned char ssd_smem[];
+  bf16* Cs = reinterpret_cast<bf16*>(ssd_smem);   // [chunk][LDB]
+  bf16* Bs = Cs + chunk * LDB;                    // [chunk][LDB]
+  bf16* Xs = Bs + chunk * LDB;                    // [chunk][LDX]
+  bf16* Hs = Xs + chunk * LDX;                    // [3][NP][LDX]: hi, mid, lo
+  float* Hf = reinterpret_cast<float*>(Hs + 3 * NP * LDX);   // [NP][PP] h_in
+  float* cum = Hf + NP * PP;                                 // [chunk]
+
+  const int s = blockIdx.x, ci = blockIdx.y, nc = gridDim.y;
+  const int t0 = ci * chunk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // two copy groups: C and h_in, which C h_in needs, then B and x, which
+  // land while C h_in is computed
+  stage_rows<NP, LDB>(Cs, c + s * cs.bh, cs.l, t0, chunk, len, n);
+  if (ci > 0) {   // h_in, (n x p) f32, into [NP][PP], zeros in the pad
+    const float* hb = hin + (static_cast<long long>(s) * nc + ci) * n * p;
+    constexpr int CH = PP / 4;
+    for (int idx = threadIdx.x; idx < NP * CH; idx += blockDim.x) {
+      const int r = idx / CH, col = 4 * (idx % CH);
+      const bool ok = r < n && col < p;
+      cp_async16(Hf + r * PP + col, ok ? hb + r * p + col : hb, ok);
+    }
+  }
+  cp_async_commit();
+  stage_rows<NP, LDB>(Bs, b + s * bs.bh, bs.l, t0, chunk, len, n);
+  stage_rows<PP, LDX>(Xs, x + s * xs.bh, xs.l, t0, chunk, len, p);
+  cp_async_commit();
+  if (warp == 0) chunk_cumsum(cum, a + s * as.bh, as.l, t0, len, chunk);
+  cp_async_wait<1>();
+  __syncthreads();
+  if (ci > 0) {   // h_in as three bf16 tiles
+    for (int idx = threadIdx.x; idx < NP * PP / 2; idx += blockDim.x) {
+      const int r = idx / (PP / 2), col = 2 * (idx % (PP / 2));
+      const float2 v = *reinterpret_cast<const float2*>(Hf + r * PP + col);
+      uint32_t hi, mid, lo;
+      split3(v.x, v.y, hi, mid, lo);
+      *reinterpret_cast<uint32_t*>(Hs + r * LDX + col) = hi;
+      *reinterpret_cast<uint32_t*>(Hs + (NP + r) * LDX + col) = mid;
+      *reinterpret_cast<uint32_t*>(Hs + (2 * NP + r) * LDX + col) = lo;
+    }
+    __syncthreads();
+  }
+
+  // warp w owns row tile w of the first half of the warps and counts down
+  // through the second half: warps w and w + 4 share a sub-partition of the
+  // SM, and the causal steps (tile + 1 each) even out over the four
+  const int nw = blockDim.x / 32, half = nw / 2;
+  const int i0 = 16 * (warp < half ? warp : nw - 1 - (warp - half));
+  uint32_t cf[NK][4];   // this warp's C rows as A fragments
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk)
+    ldmatrix_x4(cf[kk], Cs + (i0 + a_row(lane)) * LDB + 16 * kk + a_col(lane));
+  float acc[2 * PT][4];
+#pragma unroll
+  for (int nt = 0; nt < 2 * PT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  const float cum_i[2] = {cum[i0 + g], cum[i0 + g + 8]};
+
+  // y = diag(exp(cum)) C h_in, h_in exact as three bf16 pieces
+  if (ci > 0) {
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+      for (int piece = 2; piece >= 0; --piece) {   // lo, mid, hi
+        uint32_t hf[PT][4];
+#pragma unroll
+        for (int dp = 0; dp < PT; ++dp)
+          ldmatrix_x4_trans(hf[dp], Hs + (piece * NP + 16 * kk + a_row(lane)) * LDX +
+                                        16 * dp + a_col(lane));
+#pragma unroll
+        for (int dp = 0; dp < PT; ++dp) {
+          mma_bf16(acc[2 * dp], cf[kk], hf[dp][0], hf[dp][1]);
+          mma_bf16(acc[2 * dp + 1], cf[kk], hf[dp][2], hf[dp][3]);
+        }
+      }
+    }
+    const float e0 = expf(cum_i[0]), e1 = expf(cum_i[1]);
+#pragma unroll
+    for (int nt = 0; nt < 2 * PT; ++nt) {
+      acc[nt][0] *= e0;
+      acc[nt][1] *= e0;
+      acc[nt][2] *= e1;
+      acc[nt][3] *= e1;
+    }
+  }
+
+  cp_async_wait_all();   // B and x
+  __syncthreads();
+
+  // y += (C B^T * L) x: the key steps below the diagonal, KEY_STEPS at a
+  // time, then one at a time, then the diagonal step, masked
+  int j0 = 0;
+  for (; j0 + 16 * KEY_STEPS <= i0; j0 += 16 * KEY_STEPS)
+    causal_steps<KEY_STEPS, PT, NK>(acc, cf, Bs, Xs, cum, cum_i, i0, j0, false,
+                                    lane);
+  for (; j0 < i0; j0 += 16)
+    causal_steps<1, PT, NK>(acc, cf, Bs, Xs, cum, cum_i, i0, j0, false, lane);
+  causal_steps<1, PT, NK>(acc, cf, Bs, Xs, cum, cum_i, i0, i0, true, lane);
+
+  bf16* yb = y + static_cast<long long>(s) * len * p;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = t0 + i0 + g + 8 * r;
+    if (row >= len) continue;
+#pragma unroll
+    for (int nt = 0; nt < 2 * PT; ++nt) {
+      const int col = 8 * nt + 2 * t;
+      if (col < p)
+        *reinterpret_cast<__nv_bfloat162*>(yb + static_cast<long long>(row) * p + col) =
+            __floats2bfloat162_rn(acc[nt][2 * r], acc[nt][2 * r + 1]);
+    }
+  }
+}
+
+int smem_bytes_state(int p, int n, int chunk) {
+  const int ldb = 16 * tiles16(n) + 8, ldx = 16 * tiles16(p) + 8;
+  return chunk * (ldb + ldx) * static_cast<int>(sizeof(bf16)) +
+         2 * chunk * static_cast<int>(sizeof(float));
+}
+
+int smem_bytes_out(int p, int n, int chunk) {
+  const int pp = 16 * tiles16(p), np = 16 * tiles16(n);
+  const int ldb = np + 8, ldx = pp + 8;
+  return (2 * chunk * ldb + chunk * ldx + 3 * np * ldx) *
+             static_cast<int>(sizeof(bf16)) +
+         (np * pp + chunk) * static_cast<int>(sizeof(float));
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory, and asks for the
+// largest shared-memory carveout, so that as many blocks as fit share an SM.
+template <typename K>
+cudaError_t allow_smem(K kernel, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess || smem <= 48 * 1024) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
+}
+
+struct Bf16Args {
+  const bf16 *x, *b, *c;
+  const float* a;
+  bf16* y;
+  float *state, *hc, *totals;
+  int bh, len, p, n, chunk;
+  Strides xs, bs, cs, as;
+};
+
+// The three kernels in order on `stream`, group of series after group;
+// returns the first cudaError.
+template <int PT, int NK>
+cudaError_t launch_bf16(const Bf16Args& g, cudaStream_t stream) {
+  const int nc = (g.len + g.chunk - 1) / g.chunk;
+  const int smem1 = smem_bytes_state(g.p, g.n, g.chunk);
+  const int smem3 = smem_bytes_out(g.p, g.n, g.chunk);
+  cudaError_t err = allow_smem(ssd_chunk_state_kernel<PT, NK>, smem1);
+  if (err == cudaSuccess) err = allow_smem(ssd_chunk_out_kernel<PT, NK>, smem3);
+  if (err != cudaSuccess) return err;
+  const long long np = static_cast<long long>(g.n) * g.p;
+  const long long series_bytes = 4 * nc * np + 2LL * g.len * (g.p + 2 * g.n);
+  const int group = GROUP_BYTES == 0 ? g.bh : static_cast<int>(
+      std::max(1LL, std::min<long long>(g.bh, GROUP_BYTES / series_bytes)));
+  for (int s0 = 0; s0 < g.bh; s0 += group) {
+    const int bh = std::min(group, g.bh - s0);
+    const bf16* x = g.x + s0 * g.xs.bh;
+    const bf16* b = g.b + s0 * g.bs.bh;
+    const bf16* c = g.c + s0 * g.cs.bh;
+    const float* a = g.a + s0 * g.as.bh;
+    float* hc = g.hc + static_cast<long long>(s0) * nc * np;
+    float* totals = g.totals + static_cast<long long>(s0) * nc;
+    const dim3 grid(bh, nc);
+    ssd_chunk_state_kernel<PT, NK><<<grid, 32 * NK, smem1, stream>>>(
+        x, b, a, hc, totals, g.len, g.p, g.n, g.chunk, g.xs, g.bs, g.as);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const long long threads = bh * np / 4;
+    ssd_state_pass_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256,
+                            0, stream>>>(
+        hc, totals, g.state == nullptr ? nullptr : g.state + s0 * np, bh, nc,
+        static_cast<int>(np / 4));
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    ssd_chunk_out_kernel<PT, NK><<<grid, 32 * (g.chunk / 16), smem3, stream>>>(
+        x, b, c, a, hc, g.y + s0 * static_cast<long long>(g.len) * g.p, g.len,
+        g.p, g.n, g.chunk, g.xs, g.bs, g.cs, g.as);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int PT>
+cudaError_t launch_bf16_n(const Bf16Args& g, cudaStream_t stream) {
+  switch (tiles16(g.n)) {
+    case 1: return launch_bf16<PT, 1>(g, stream);
+    case 2: return launch_bf16<PT, 2>(g, stream);
+    case 4: return launch_bf16<PT, 4>(g, stream);
+    case 8: return launch_bf16<PT, 8>(g, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace ssd
+}  // namespace repro
+
+// Shared memory one block of the f32 kernel needs (bytes).
+extern "C" int repro_ssd_scan_smem_bytes(int p, int n, int chunk) {
+  return repro::ssd::smem_bytes_f32(p, n, chunk);
+}
+
+// Shared memory the largest block of the bf16 kernels needs (bytes).
+extern "C" int repro_ssd_chunked_smem_bytes(int p, int n, int chunk) {
+  using namespace repro::ssd;
+  const int a = smem_bytes_state(p, n, chunk), b = smem_bytes_out(p, n, chunk);
+  return a > b ? a : b;
+}
+
+// f32: x (bh, len, p), b/c (bh, len, n), unit stride over the last axis and
+// the given element strides over (series, step); a: (bh, len) f32
+// log-decay; y: (bh, len, p) contiguous; state: (bh, n, p) f32 contiguous,
+// or null.  p <= 64, n <= 128, chunk a multiple of 16 up to 128 and the
+// shared-memory size are checked by the Python wrapper.  Returns
+// cudaGetLastError.
 extern "C" int repro_ssd_scan(const void* x, const void* b, const void* c,
                               const void* a, void* y, void* state, int bh,
-                              int len, int p, int n, int chunk, int bf16,
+                              int len, int p, int n, int chunk,
                               long long xsb, long long xsl, long long bsb,
                               long long bsl, long long csb, long long csl,
                               long long asb, long long asl, void* stream) {
   using namespace repro::ssd;
   const Strides xs{xsb, xsl}, bs{bsb, bsl}, cs{csb, csl}, as{asb, asl};
-  const int smem = repro_ssd_scan_smem_bytes(p, n, chunk);
+  const int smem = smem_bytes_f32(p, n, chunk);
+  cudaError_t err = allow_smem(ssd_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_kernel<<<bh, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(b),
+      static_cast<const float*>(c), static_cast<const float*>(a),
+      static_cast<float*>(y), static_cast<float*>(state), len, p, n, chunk, xs,
+      bs, cs, as);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16: the same operands in bf16 (a and state f32), plus the f32 scratch
+// the wrapper allocates: hc (bh, nc, n, p) and totals (bh, nc), nc the
+// number of chunks.  p, n and the (series, step) strides multiples of 8,
+// 16-byte aligned pointers, p <= 64, n <= 128, chunk a multiple of 16 up to
+// 128 and the shared-memory size are checked by the Python wrapper.
+// Launches the three kernels in order; returns the first cudaError.
+extern "C" int repro_ssd_scan_bf16(const void* x, const void* b, const void* c,
+                                   const void* a, void* y, void* state,
+                                   void* hc, void* totals, int bh, int len,
+                                   int p, int n, int chunk, long long xsb,
+                                   long long xsl, long long bsb, long long bsl,
+                                   long long csb, long long csl, long long asb,
+                                   long long asl, void* stream) {
+  using namespace repro::ssd;
+  using repro::bf16;
+  const Bf16Args args{static_cast<const bf16*>(x), static_cast<const bf16*>(b),
+                      static_cast<const bf16*>(c), static_cast<const float*>(a),
+                      static_cast<bf16*>(y), static_cast<float*>(state),
+                      static_cast<float*>(hc), static_cast<float*>(totals),
+                      bh, len, p, n, chunk, Strides{xsb, xsl}, Strides{bsb, bsl},
+                      Strides{csb, csl}, Strides{asb, asl}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(x, b, c, a, y, state, bh, len, p, n, chunk,
-                                 xs, bs, cs, as, smem, st);
-  return launch<float>(x, b, c, a, y, state, bh, len, p, n, chunk, xs, bs, cs,
-                       as, smem, st);
+  switch (tiles16(p)) {
+    case 1: return static_cast<int>(launch_bf16_n<1>(args, st));
+    case 2: return static_cast<int>(launch_bf16_n<2>(args, st));
+    case 4: return static_cast<int>(launch_bf16_n<4>(args, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -43,7 +43,8 @@ def _on_cuda(q, *_, **__) -> bool:
 def _ssd_auto(x, b, c, a, *, chunk: int = 128, **_) -> bool:
     """On CUDA, and at a shape the kernel takes: a routing decision made
     before the call, so what the kernel refuses runs dense."""
-    return x.device.type == "cuda" and fits(x.shape[2], b.shape[2], chunk)
+    return x.device.type == "cuda" and fits(x.shape[2], b.shape[2], chunk,
+                                            x.dtype)
 
 
 dispatch.register_kernel("attention", kernel=flash_attention,

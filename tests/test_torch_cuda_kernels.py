@@ -293,16 +293,24 @@ def _ssd(seed, bh, length, p, n, dtype):
     return x, b, c, a
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bh,length,p,n,chunk", [
+_SSD_SHAPES = [
     (4, 1000, 64, 64, 128),    # ragged last chunk at Zamba2's P, N
     (3, 200, 16, 16, 64),
     (2, 40, 16, 16, 16),       # the smoke model's chunk
     (2, 256, 64, 128, 64),     # N = 128
     (2, 77, 32, 16, 48),       # chunk not a power of two
-])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+]
+_SSD_CASES = [pytest.param(*shape, dtype, id=f"{name}-" + "-".join(map(str, shape)))
+              for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+              for shape in _SSD_SHAPES] + [
+    # mamba2-2.7b's N = 128 at chunk 128: only the bf16 kernels take it
+    pytest.param(2, 300, 64, 128, 128, torch.bfloat16,
+                 id="bf16-2-300-64-128-128"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,length,p,n,chunk,dtype", _SSD_CASES)
 def test_ssd_scan_kernel_matches_plain(cuda, bh, length, p, n, chunk, dtype):
     x, b, c, a = _ssd(20, bh, length, p, n, dtype)
     before = KS.ssd_scan.launches
@@ -326,6 +334,53 @@ def test_ssd_scan_reads_strided_operands(cuda):
     b, c = bc[..., :64], bc[..., 80:144]
     got = KS.ssd_scan(x, b, c, a, chunk=128)
     assert _crel(got, KS.ssd_scan_plain(x, b, c, a, chunk=128)) <= F32_TOL
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bf16_reads_strided_operands(cuda):
+    """The bf16 kernels read B and C as views of a wider bf16 projection
+    through their strides; a view that breaks the 16-byte alignment of
+    their cp.async rows is refused."""
+    x, _, _, a = _ssd(32, 2, 300, 64, 64, torch.bfloat16)
+    bc = _crand(33, 2, 300, 160).to(torch.bfloat16)
+    b, c = bc[..., :64], bc[..., 80:144]
+    got = KS.ssd_scan(x, b, c, a, chunk=128)
+    assert _crel(got.float(), KS.ssd_scan_plain(x, b, c, a, chunk=128).float()) \
+        <= BF16_TOL
+    with pytest.raises(ValueError, match="16-byte"):
+        KS.ssd_scan(x, bc[..., 4:68], c, a, chunk=128)
+
+
+@pytest.mark.cuda
+def test_ssd_auto_runs_the_bf16_mamba2_state_on_the_kernel(cuda):
+    """bf16 N = 128 at chunk 128 (mamba2-2.7b's state) fits the
+    chunk-parallel kernels: ``auto`` sends it to the kernel."""
+    from repro_torch.kernels import dispatch, ops
+    x, b, c, a = _ssd(46, 2, 300, 64, 128, torch.bfloat16)
+    assert KS.fits(64, 128, 128, torch.bfloat16)
+    prev = dispatch.set_kernel_backend("auto")
+    try:
+        dispatch.reset_dispatch_stats()
+        got = ops.ssd(x, b, c, a, chunk=128)
+        st = dispatch.dispatch_stats()
+    finally:
+        dispatch.set_kernel_backend(prev)
+    assert (st["kernel_ssd_calls"], st["dense_ssd_calls"]) == (1, 0)
+    assert _crel(got.float(), KS.ssd_scan_plain(x, b, c, a, chunk=128).float()) \
+        <= BF16_TOL
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bf16_lies_well_inside_the_bf16_operand_witness(cuda):
+    """The f32 contract, where it can be seen: the plain version with its
+    three f32 operands rounded to bf16 (the witness) against the plain
+    version.  The bf16 kernels keep those operands exact, so their gap
+    must stay under a quarter of the witness's."""
+    x, b, c, a = _ssd(47, 16, 1000, 64, 64, torch.bfloat16)
+    want = KS.ssd_scan_plain(x, b, c, a, chunk=128).float()
+    got = KS.ssd_scan(x, b, c, a, chunk=128).float()
+    witness = KS.ssd_scan_split_plain(x, b, c, a, chunk=128, pieces=1).float()
+    assert _crel(got, want) <= 0.25 * _crel(witness, want)
 
 
 @pytest.mark.cuda

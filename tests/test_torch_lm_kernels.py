@@ -22,7 +22,8 @@ from repro_torch.kernels import dispatch, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain, flash_attention_split_plain,
     lo_piece_probe, split_bf16x3)
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_scan, ssd_scan_plain, ssd_scan_split_plain)
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 
 # f32: the same f32 products and exponentials summed in another order.
@@ -221,6 +222,49 @@ def test_ssd_plain_matches_pallas_and_oracle(bh, length, p, n, chunk):
     assert _rel(got, oracle) <= F32_TOL
 
 
+def _ssd_bf16_valued(seed, bh, length, p, n):
+    """``_ssd_inputs`` with x, B and C rounded to bf16 values (held in f32):
+    the bf16 kernels' operands, seen by an f32 computation."""
+    x, b, c, a = (torch.from_numpy(t) for t in _ssd_inputs(seed, bh, length,
+                                                            p, n))
+    return (*(t.to(torch.bfloat16).float() for t in (x, b, c)), a)
+
+
+@pytest.mark.parametrize("bh,length,p,n,chunk", [(3, 200, 16, 16, 64),
+                                                 (2, 256, 64, 64, 128)])
+def test_ssd_with_operands_split_in_three_matches_pallas_and_plain(
+        bh, length, p, n, chunk):
+    """The three products with an f32 operand (decayed scores, decay-
+    weighted B, incoming state) as three bf16 products of its exact split
+    (the bf16 kernels' arithmetic), y and the final state, against the
+    Pallas kernel in interpret mode and the plain version; 200 = 3 x 64 + 8
+    ends in a ragged chunk."""
+    x, b, c, a = _ssd_bf16_valued(40, bh, length, p, n)
+    y, h = ssd_scan_split_plain(x, b, c, a, chunk=chunk, return_state=True,
+                                pieces=3)
+    y0, h0 = ssd_scan_plain(x, b, c, a, chunk=chunk, return_state=True)
+    pallas = rssd(*(jnp.asarray(t.numpy()) for t in (x, b, c, a)),
+                  chunk=chunk, interpret=True)
+    assert y.shape == (bh, length, p) and h.shape == (bh, n, p)
+    assert _rel(y, np.asarray(pallas)) <= F32_TOL
+    assert _rel(y, y0) <= F32_TOL
+    assert _rel(h, h0) <= F32_TOL
+
+
+@pytest.mark.parametrize("bh,length,p,n,chunk", [(3, 200, 16, 16, 64),
+                                                 (2, 256, 64, 64, 128)])
+def test_ssd_with_operands_rounded_to_bf16_misses_the_f32_tolerance(
+        bh, length, p, n, chunk):
+    """The witness: the same computation with the three f32 operands
+    rounded to bf16 (one piece) lies beyond F32_TOL from the plain
+    version, so the test above can tell exact operands from rounded
+    ones."""
+    x, b, c, a = _ssd_bf16_valued(40, bh, length, p, n)
+    want = ssd_scan_plain(x, b, c, a, chunk=chunk)
+    assert _rel(ssd_scan_split_plain(x, b, c, a, chunk=chunk, pieces=1),
+                want) > F32_TOL
+
+
 def test_ssd_chunked_final_state_matches_reference():
     """The port's ssd_chunked ((B, H, L, P) layout over ssd_scan_plain)
     against the reference model's, y and the final (N, P) state."""
@@ -298,6 +342,25 @@ class _SmemQuery:
         ldt = chunk + 1
         return 4 * (2 * n * ldt + chunk * ldt + chunk * p + n * p + 3 * chunk)
 
+    @staticmethod
+    def repro_ssd_chunked_smem_bytes(p, n, chunk):
+        """The bf16 kernels' largest block, ``ssd_chunk_out_kernel``'s: C,
+        B and x tiles and three bf16 pieces of h_in, rows padded by 8, h_in
+        in f32 and the chunk's prefix sums; P and N padded to 16, 32, 64 or
+        128."""
+        def padded(v):
+            t = 16
+            while t < v:
+                t *= 2
+            return t
+
+        pp, np_ = padded(p), padded(n)
+        ldb, ldx = np_ + 8, pp + 8
+        out = 2 * (2 * chunk * ldb + chunk * ldx + 3 * np_ * ldx) \
+            + 4 * (np_ * pp + chunk)
+        state = 2 * chunk * (ldb + ldx) + 8 * chunk
+        return max(out, state)
+
 
 @pytest.mark.parametrize("p,n,chunk,takes", [
     (64, 64, 128, True),       # Zamba2's state: 182,784 bytes
@@ -315,3 +378,21 @@ def test_ssd_fits_asks_the_library_size_query(monkeypatch, p, n, chunk,
     assert _SmemQuery.repro_ssd_scan_smem_bytes(64, 128, 128) == 265216
     monkeypatch.setattr(build, "library", lambda: _SmemQuery)
     assert KS.fits(p, n, chunk) is takes
+
+
+@pytest.mark.parametrize("p,n,chunk,dtype,takes", [
+    (64, 128, 128, torch.bfloat16, True),    # mamba2's state: 176,640 bytes
+    (64, 128, 128, torch.float32, False),    # the f32 kernel: 265,216 bytes
+    (64, 64, 128, torch.bfloat16, True),     # Zamba2's state
+    (64, 120, 128, torch.bfloat16, True),    # N padded to 128 in the tiles
+    (64, 20, 64, torch.bfloat16, False),     # N not a multiple of 8
+    (80, 64, 128, torch.bfloat16, False),    # P above MAX_HEAD_DIM
+])
+def test_ssd_fits_is_dtype_aware(monkeypatch, p, n, chunk, dtype, takes):
+    """bf16 asks the chunk-parallel kernels' size query, which takes
+    mamba2-2.7b's N = 128 at chunk 128; f32 keeps the one-block-per-series
+    kernel's limit, so there the ``auto`` mode still runs it dense."""
+    from repro_torch.kernels import build, ssd_scan as KS
+    assert _SmemQuery.repro_ssd_chunked_smem_bytes(64, 128, 128) == 176640
+    monkeypatch.setattr(build, "library", lambda: _SmemQuery)
+    assert KS.fits(p, n, chunk, dtype) is takes
