@@ -23,42 +23,44 @@
 // 0.054 ms in all, under the 0.1025 ms the 3.4e8 bytes take: bytes bound
 // it.
 //
-// bf16 operands: three kernels on one stream, the chunk recurrence carried
-// by a small pass over states (the SSD form of the paper's section 6), so
-// every chunk of every series is a block of its own: 5,120 blocks at the
-// served shape where the TPU grid walks 16 chunks in order.
-// 1. ssd_chunk_state_kernel, one block per (series, chunk), a warp per 16
-//    state rows: Hc = (diag(w) B)^T x with w = exp(total - cum), in f32,
-//    into an (BH, NC, N, P) scratch, and total into a (BH, NC) one.  B and
-//    x are staged with 16-byte cp.async (zeros past L and in the pad
-//    columns up to a multiple of 16; rows padded by 8 bf16 so ldmatrix has
-//    no bank conflicts); cum is a warp scan in f32.  The A fragments of
-//    (w B)^T come from ldmatrix.trans of B, are scaled by w in f32 and split
-//    exactly into three bf16 pieces: three mma.sync m16n8k16 against the
-//    bf16 x fragments, into one f32 accumulator.
-// 2. ssd_state_pass_kernel, one thread per four state entries of a series,
-//    in order over the chunks: h_in[c] = exp(total[c-1]) h_in[c-1] +
-//    Hc[c-1], written over Hc[c] in place (chunk 0's incoming state is 0,
-//    never read), and the final state when asked.
-// 3. ssd_chunk_out_kernel, one block per (series, chunk), flash's structure
-//    with a decay mask in place of the softmax: each warp owns 16 chunk
-//    rows and holds its C rows as A fragments (the row tiles are dealt so
-//    that each of the SM's four sub-partitions gets the same number of
-//    causal steps).
-//    - C h_in: h_in is staged from the scratch with cp.async beside the
-//      inputs, split once into three bf16 tiles in shared memory, and
-//      multiplied as three products against the bf16 C; exp(cum_i) scales
-//      the f32 accumulator rows afterwards.
-//    - (C B^T * L) x, 16 keys a step, only the steps on or below the
-//      diagonal: S = C B^T on mma.sync, then exp(cum_i - cum_j) applied in
-//      f32 where i >= j (the upper triangle would overflow) and 0 above;
-//      the two n8 accumulator tiles of S are the A fragment of the next
-//      k16 step, split three ways against x (ldmatrix.trans), smallest piece
-//      first, so S never touches shared memory.
-//    - y is rounded to bf16; rows past L are not written.
+// bf16 operands: ssd_chunk_kernel, one block of 8 warps per chunk of each
+// series (5,120 blocks at the served shape where the TPU grid walks 16
+// chunks in order), the chunk-to-chunk state carried by an ordered
+// look-back instead of a loop.  Each block takes a ticket from a counter
+// (chunk-major), so the block that publishes its incoming state holds an
+// earlier ticket and is running or done: no block waits on one that has
+// not started, and with more series than blocks in flight the state is
+// already there.  The f32 states between chunks go through a (BH, NC - 1,
+// N, P) scratch (about 79 MB at the served shape, mostly read back from
+// L2), each handed over by a flag (release store, acquire load).
+// - B, x and C are staged with 16-byte cp.async (zeros past L and in the
+//   pad columns; rows padded by 8 bf16 so ldmatrix has no bank conflicts),
+//   and the incoming state is fetched while they are in flight; cum is a
+//   warp scan in f32.
+// - Hc = (diag(w) B)^T x, w = exp(total - cum): the A fragments of (w B)^T
+//   come from ldmatrix.trans of B, are scaled by w in f32 and split
+//   exactly into three bf16 pieces, three mma.sync m16n8k16 against the
+//   bf16 x fragments into one f32 accumulator.  exp(total) h_in + Hc goes
+//   to the scratch for the next chunk (or to the final state); its flag is
+//   set when the block ends.
+// - y, flash's structure with a decay mask in place of the softmax: each
+//   warp owns 16 chunk rows and holds its C rows as A fragments (the row
+//   tiles dealt so that the SM's four sub-partitions get the same number
+//   of causal steps).  C h_in: h_in split once into three bf16 tiles in
+//   shared memory, three products against the bf16 C, exp(cum_i) applied
+//   to the f32 rows afterwards.  (C B^T * L) x, 16 keys a step, only the
+//   steps on or below the diagonal: S = C B^T on mma.sync, exp(cum_i -
+//   cum_j) applied in f32 where i >= j (the upper triangle would overflow)
+//   and 0 above; the two n8 accumulator tiles of S are the A fragment of
+//   the next k16 step, split three ways against x (ldmatrix.trans),
+//   smallest piece first, so S never touches shared memory.  y is rounded
+//   to bf16; rows past L are not written.
+// - P and N are padded to 16, 32 or 64 and 16 to 128 (template
+//   parameters, so every fragment loop has fixed bounds).
 // A ragged last chunk needs no host-side padding: rows past L read as zero
-// (a = 0, B = C = x = 0), which leaves the state unchanged.  No atomics:
-// every sum has a fixed order and runs repeat bit for bit.
+// (a = 0, B = C = x = 0), which leaves the state unchanged.  No atomics in
+// any sum (the ticket counter is the only atomic): every sum has a fixed
+// order and runs repeat bit for bit.
 //
 // f32 operands (the checking path): ssd_kernel, plain FMA in f32.  The TPU
 // grid's sequential chunk axis is a loop inside the block; one block of 256
@@ -66,8 +68,6 @@
 // shared memory for the whole scan.  Each chunk stages B and C transposed
 // (odd row stride), x and cum; the (T x T) masked score tile goes to shared
 // memory, then y and the state update are register-tiled products over it.
-#include <algorithm>
-
 #include "mma_bf16.cuh"
 
 namespace repro {
@@ -293,17 +293,10 @@ int smem_bytes_f32(int p, int n, int chunk) {
 }
 
 // --------------------------------------------------------------- bf16 ----
-// The tile kernels are compiled for P padded to PT 16-column tiles and N to
-// NK 16-row tiles, PT in {1, 2, 4} and NK in {1, 2, 4, 8} (the next power
-// of two; the pad is zero-filled), so every fragment loop has fixed bounds.
+// The kernel is compiled for P padded to PT 16-column tiles and N to NK
+// 16-row tiles, PT in {1, 2, 4} and NK in {1, 2, 4, 8} (the next power of
+// two; the pad is zero-filled), so every fragment loop has fixed bounds.
 constexpr int MAX_THREADS = 32 * (MAX_N / 16);   // = 32 * (MAX_T / 16)
-// Off-diagonal key steps of 16 taken together in one pass of the output
-// kernel's loop (independent products and exponentials to interleave).
-constexpr int KEY_STEPS = 1;
-// The series run in groups whose bytes (the f32 scratch and the bf16 x, B
-// and C) stay under this, so that what the first kernel writes and the
-// last reads can stay in the 50 MB L2; 0: one group.
-constexpr long long GROUP_BYTES = 0;
 
 __host__ __device__ __forceinline__ int tiles16(int v) {
   int t = 1;
@@ -358,118 +351,34 @@ __device__ __forceinline__ void mma_pieces(float (&acc)[2 * PT][4],
   }
 }
 
+// Flags between the blocks of one series: the state after a chunk is
+// published with a release store and read after an acquire load.
+__device__ __forceinline__ void flag_release(int* f) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(f), "r"(1)
+               : "memory");
+}
+__device__ __forceinline__ int flag_acquire(const int* f) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v) : "l"(f) : "memory");
+  return v;
+}
+
+// Spins until *f is set.  The block that sets it holds an earlier ticket,
+// so it is running or done; after about 2^32 cycles (seconds) the kernel
+// traps rather than hang the card.
+__device__ __forceinline__ void wait_flag(const int* f) {
+  const long long start = clock64();
+  while (flag_acquire(f) == 0) {
+    if (clock64() - start > (1LL << 32)) __trap();
+    __nanosleep(64);
+  }
+}
+
+// y += (C B^T * L) x over the keys [j0, j0 + 16) for the warp's 16 rows from
+// i0; `diag` masks the upper triangle (the step j0 = i0).
 template <int PT, int NK>
-__global__ void __launch_bounds__(MAX_THREADS)
-ssd_chunk_state_kernel(const bf16* __restrict__ x, const bf16* __restrict__ b,
-                       const float* __restrict__ a, float* __restrict__ hc,
-                       float* __restrict__ totals, int len, int p, int n,
-                       int chunk, Strides xs, Strides bs, Strides as) {
-  constexpr int LDB = 16 * NK + 8, LDX = 16 * PT + 8;
-  extern __shared__ __align__(16) unsigned char ssd_smem[];
-  bf16* Bs = reinterpret_cast<bf16*>(ssd_smem);              // [chunk][LDB]
-  bf16* Xs = Bs + chunk * LDB;                               // [chunk][LDX]
-  float* cum = reinterpret_cast<float*>(Xs + chunk * LDX);   // [chunk]
-  float* w = cum + chunk;                                    // [chunk]
-
-  const int s = blockIdx.x, ci = blockIdx.y, nc = gridDim.y;
-  const int t0 = ci * chunk;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;   // fragment row, column pair
-  stage_rows<16 * NK, LDB>(Bs, b + s * bs.bh, bs.l, t0, chunk, len, n);
-  stage_rows<16 * PT, LDX>(Xs, x + s * xs.bh, xs.l, t0, chunk, len, p);
-  cp_async_commit();
-  if (warp == 0) chunk_cumsum(cum, a + s * as.bh, as.l, t0, len, chunk);
-  __syncthreads();
-  const float total = cum[chunk - 1];
-  for (int j = threadIdx.x; j < chunk; j += blockDim.x)
-    w[j] = expf(total - cum[j]);
-  cp_async_wait_all();
-  __syncthreads();
-
-  // this warp's state rows [m0, m0 + 16) times all P columns
-  const int m0 = 16 * warp;
-  float acc[2 * PT][4];
-#pragma unroll
-  for (int nt = 0; nt < 2 * PT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  for (int k0 = 0; k0 < chunk; k0 += 16) {
-    // A[m][k] = w_k B[k][m]: ldmatrix.trans of the [k][n] tile; a0, a1
-    // hold steps k0 + 2t, k0 + 2t + 1, a2, a3 the same plus 8
-    uint32_t bf[4], hi[4], mid[4], lo[4];
-    ldmatrix_x4_trans(bf, Bs + (k0 + b_row(lane)) * LDB + m0 + b_col(lane));
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = k0 + 2 * t + 8 * (e >> 1);
-      const float2 v = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&bf[e]));
-      split3(v.x * w[k], v.y * w[k + 1], hi[e], mid[e], lo[e]);
-    }
-    uint32_t xf[PT][4];
-#pragma unroll
-    for (int dp = 0; dp < PT; ++dp)
-      ldmatrix_x4_trans(xf[dp], Xs + (k0 + a_row(lane)) * LDX + 16 * dp + a_col(lane));
-    mma_pieces<PT>(acc, lo, mid, hi, xf);
-  }
-
-  float* out = hc + (static_cast<long long>(s) * nc + ci) * n * p;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = m0 + g + 8 * r;
-    if (row >= n) continue;
-#pragma unroll
-    for (int nt = 0; nt < 2 * PT; ++nt) {
-      const int col = 8 * nt + 2 * t;
-      if (col < p)
-        *reinterpret_cast<float2*>(out + row * p + col) =
-            make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
-    }
-  }
-  if (threadIdx.x == 0) totals[static_cast<long long>(s) * nc + ci] = total;
-}
-
-// hc: (bh, nc, n p) f32 holding each chunk's own contribution Hc; on return
-// hc[:, c] holds chunk c's incoming state for c >= 1.  One thread per four
-// consecutive entries of one series (n p a multiple of 4); the loads of
-// PASS_BATCH chunks are issued before any of their stores, so each thread
-// keeps that many in flight.
-constexpr int PASS_BATCH = 8;
-
-__global__ void __launch_bounds__(256)
-ssd_state_pass_kernel(float* __restrict__ hc, const float* __restrict__ totals,
-                      float* __restrict__ state, int bh, int nc, int np4) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(bh) * np4) return;
-  const int s = static_cast<int>(idx / np4), e = static_cast<int>(idx % np4);
-  float4* col = reinterpret_cast<float4*>(hc) + static_cast<long long>(s) * nc * np4 + e;
-  const float* tot = totals + static_cast<long long>(s) * nc;
-  float4 h = col[0];          // the state after chunk 0: exp(total) 0 + Hc[0]
-  for (int c0 = 1; c0 < nc; c0 += PASS_BATCH) {
-    float4 own[PASS_BATCH];
-    float d[PASS_BATCH];
-#pragma unroll
-    for (int k = 0; k < PASS_BATCH; ++k)
-      if (c0 + k < nc) {
-        own[k] = col[static_cast<long long>(c0 + k) * np4];
-        d[k] = expf(tot[c0 + k]);
-      }
-#pragma unroll
-    for (int k = 0; k < PASS_BATCH; ++k)
-      if (c0 + k < nc) {
-        col[static_cast<long long>(c0 + k) * np4] = h;
-        h.x = __fadd_rn(__fmul_rn(d[k], h.x), own[k].x);
-        h.y = __fadd_rn(__fmul_rn(d[k], h.y), own[k].y);
-        h.z = __fadd_rn(__fmul_rn(d[k], h.z), own[k].z);
-        h.w = __fadd_rn(__fmul_rn(d[k], h.w), own[k].w);
-      }
-  }
-  if (state != nullptr)
-    reinterpret_cast<float4*>(state)[static_cast<long long>(s) * np4 + e] = h;
-}
-
-// y += (C B^T * L) x over the K key steps [j0, j0 + 16 K) of the warp's 16
-// rows from i0; `diag` masks the upper triangle (the step j0 = i0).
-template <int K, int PT, int NK>
-__device__ __forceinline__ void causal_steps(float (&acc)[2 * PT][4],
+__device__ __forceinline__ void causal_step(float (&acc)[2 * PT][4],
                                              const uint32_t (&cf)[NK][4],
                                              const bf16* Bs, const bf16* Xs,
                                              const float* cum,
@@ -477,101 +386,49 @@ __device__ __forceinline__ void causal_steps(float (&acc)[2 * PT][4],
                                              int j0, bool diag, int lane) {
   constexpr int LDB = 16 * NK + 8, LDX = 16 * PT + 8;
   const int g = lane / 4, t = lane % 4;
-  float sc[2 * K][4];
+  float sc[2][4];
 #pragma unroll
-  for (int nt = 0; nt < 2 * K; ++nt)
+  for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < NK; ++kk)
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      uint32_t kf[4];
-      ldmatrix_x4(kf, Bs + (j0 + 16 * k + b_row(lane)) * LDB + 16 * kk + b_col(lane));
-      mma_bf16(sc[2 * k], cf[kk], kf[0], kf[1]);
-      mma_bf16(sc[2 * k + 1], cf[kk], kf[2], kf[3]);
-    }
+  for (int kk = 0; kk < NK; ++kk) {
+    uint32_t kf[4];
+    ldmatrix_x4(kf, Bs + (j0 + b_row(lane)) * LDB + 16 * kk + b_col(lane));
+    mma_bf16(sc[0], cf[kk], kf[0], kf[1]);
+    mma_bf16(sc[1], cf[kk], kf[2], kf[3]);
+  }
   // decay, rows i0 + g (e = 0, 1) and i0 + g + 8 (e = 2, 3)
 #pragma unroll
-  for (int nt = 0; nt < 2 * K; ++nt)
+  for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = i0 + g + 8 * (e >> 1), j = j0 + 8 * nt + 2 * t + (e & 1);
       const float v = sc[nt][e] * expf(cum_i[e >> 1] - cum[j]);
       sc[nt][e] = diag && i < j ? 0.f : v;
     }
+  uint32_t hi[4], mid[4], lo[4];
+  split3(sc[0][0], sc[0][1], hi[0], mid[0], lo[0]);
+  split3(sc[0][2], sc[0][3], hi[1], mid[1], lo[1]);
+  split3(sc[1][0], sc[1][1], hi[2], mid[2], lo[2]);
+  split3(sc[1][2], sc[1][3], hi[3], mid[3], lo[3]);
+  uint32_t xf[PT][4];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    uint32_t hi[4], mid[4], lo[4];
-    split3(sc[2 * k][0], sc[2 * k][1], hi[0], mid[0], lo[0]);
-    split3(sc[2 * k][2], sc[2 * k][3], hi[1], mid[1], lo[1]);
-    split3(sc[2 * k + 1][0], sc[2 * k + 1][1], hi[2], mid[2], lo[2]);
-    split3(sc[2 * k + 1][2], sc[2 * k + 1][3], hi[3], mid[3], lo[3]);
-    uint32_t xf[PT][4];
-#pragma unroll
-    for (int dp = 0; dp < PT; ++dp)
-      ldmatrix_x4_trans(xf[dp], Xs + (j0 + 16 * k + a_row(lane)) * LDX + 16 * dp + a_col(lane));
-    mma_pieces<PT>(acc, lo, mid, hi, xf);
-  }
+  for (int dp = 0; dp < PT; ++dp)
+    ldmatrix_x4_trans(xf[dp], Xs + (j0 + a_row(lane)) * LDX + 16 * dp + a_col(lane));
+  mma_pieces<PT>(acc, lo, mid, hi, xf);
 }
 
+// y of the 16 chunk rows from i0 of series s (y already offset to it):
+// diag(exp(cum)) C h_in, then (C B^T * L) x.
 template <int PT, int NK>
-__global__ void __launch_bounds__(MAX_THREADS)
-ssd_chunk_out_kernel(const bf16* __restrict__ x, const bf16* __restrict__ b,
-                     const bf16* __restrict__ c, const float* __restrict__ a,
-                     const float* __restrict__ hin, bf16* __restrict__ y,
-                     int len, int p, int n, int chunk, Strides xs, Strides bs,
-                     Strides cs, Strides as) {
-  constexpr int PP = 16 * PT, NP = 16 * NK, LDB = NP + 8, LDX = PP + 8;
-  extern __shared__ __align__(16) unsigned char ssd_smem[];
-  bf16* Cs = reinterpret_cast<bf16*>(ssd_smem);   // [chunk][LDB]
-  bf16* Bs = Cs + chunk * LDB;                    // [chunk][LDB]
-  bf16* Xs = Bs + chunk * LDB;                    // [chunk][LDX]
-  bf16* Hs = Xs + chunk * LDX;                    // [3][NP][LDX]: hi, mid, lo
-  float* Hf = reinterpret_cast<float*>(Hs + 3 * NP * LDX);   // [NP][PP] h_in
-  float* cum = Hf + NP * PP;                                 // [chunk]
-
-  const int s = blockIdx.x, ci = blockIdx.y, nc = gridDim.y;
-  const int t0 = ci * chunk;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+__device__ __forceinline__ void chunk_rows(const bf16* Cs, const bf16* Bs,
+                                           const bf16* Xs, const bf16* Hs,
+                                           const float* cum, bf16* yb, int i0,
+                                           int ci, int t0, int len, int p,
+                                           int lane) {
+  constexpr int NP = 16 * NK, LDB = NP + 8, LDX = 16 * PT + 8;
   const int g = lane / 4, t = lane % 4;
-  // two copy groups: C and h_in, which C h_in needs, then B and x, which
-  // land while C h_in is computed
-  stage_rows<NP, LDB>(Cs, c + s * cs.bh, cs.l, t0, chunk, len, n);
-  if (ci > 0) {   // h_in, (n x p) f32, into [NP][PP], zeros in the pad
-    const float* hb = hin + (static_cast<long long>(s) * nc + ci) * n * p;
-    constexpr int CH = PP / 4;
-    for (int idx = threadIdx.x; idx < NP * CH; idx += blockDim.x) {
-      const int r = idx / CH, col = 4 * (idx % CH);
-      const bool ok = r < n && col < p;
-      cp_async16(Hf + r * PP + col, ok ? hb + r * p + col : hb, ok);
-    }
-  }
-  cp_async_commit();
-  stage_rows<NP, LDB>(Bs, b + s * bs.bh, bs.l, t0, chunk, len, n);
-  stage_rows<PP, LDX>(Xs, x + s * xs.bh, xs.l, t0, chunk, len, p);
-  cp_async_commit();
-  if (warp == 0) chunk_cumsum(cum, a + s * as.bh, as.l, t0, len, chunk);
-  cp_async_wait<1>();
-  __syncthreads();
-  if (ci > 0) {   // h_in as three bf16 tiles
-    for (int idx = threadIdx.x; idx < NP * PP / 2; idx += blockDim.x) {
-      const int r = idx / (PP / 2), col = 2 * (idx % (PP / 2));
-      const float2 v = *reinterpret_cast<const float2*>(Hf + r * PP + col);
-      uint32_t hi, mid, lo;
-      split3(v.x, v.y, hi, mid, lo);
-      *reinterpret_cast<uint32_t*>(Hs + r * LDX + col) = hi;
-      *reinterpret_cast<uint32_t*>(Hs + (NP + r) * LDX + col) = mid;
-      *reinterpret_cast<uint32_t*>(Hs + (2 * NP + r) * LDX + col) = lo;
-    }
-    __syncthreads();
-  }
-
-  // warp w owns row tile w of the first half of the warps and counts down
-  // through the second half: warps w and w + 4 share a sub-partition of the
-  // SM, and the causal steps (tile + 1 each) even out over the four
-  const int nw = blockDim.x / 32, half = nw / 2;
-  const int i0 = 16 * (warp < half ? warp : nw - 1 - (warp - half));
   uint32_t cf[NK][4];   // this warp's C rows as A fragments
 #pragma unroll
   for (int kk = 0; kk < NK; ++kk)
@@ -611,20 +468,12 @@ ssd_chunk_out_kernel(const bf16* __restrict__ x, const bf16* __restrict__ b,
     }
   }
 
-  cp_async_wait_all();   // B and x
-  __syncthreads();
+  // y += (C B^T * L) x: the key steps below the diagonal, then the
+  // diagonal step, masked
+  for (int j0 = 0; j0 < i0; j0 += 16)
+    causal_step<PT, NK>(acc, cf, Bs, Xs, cum, cum_i, i0, j0, false, lane);
+  causal_step<PT, NK>(acc, cf, Bs, Xs, cum, cum_i, i0, i0, true, lane);
 
-  // y += (C B^T * L) x: the key steps below the diagonal, KEY_STEPS at a
-  // time, then one at a time, then the diagonal step, masked
-  int j0 = 0;
-  for (; j0 + 16 * KEY_STEPS <= i0; j0 += 16 * KEY_STEPS)
-    causal_steps<KEY_STEPS, PT, NK>(acc, cf, Bs, Xs, cum, cum_i, i0, j0, false,
-                                    lane);
-  for (; j0 < i0; j0 += 16)
-    causal_steps<1, PT, NK>(acc, cf, Bs, Xs, cum, cum_i, i0, j0, false, lane);
-  causal_steps<1, PT, NK>(acc, cf, Bs, Xs, cum, cum_i, i0, i0, true, lane);
-
-  bf16* yb = y + static_cast<long long>(s) * len * p;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = t0 + i0 + g + 8 * r;
@@ -639,28 +488,173 @@ ssd_chunk_out_kernel(const bf16* __restrict__ x, const bf16* __restrict__ b,
   }
 }
 
-int smem_bytes_state(int p, int n, int chunk) {
-  const int ldb = 16 * tiles16(n) + 8, ldx = 16 * tiles16(p) + 8;
-  return chunk * (ldb + ldx) * static_cast<int>(sizeof(bf16)) +
-         2 * chunk * static_cast<int>(sizeof(float));
+// One block per (series, chunk), in ticket order (chunk-major).  Shared
+// memory: C, B and x tiles, h_in as three bf16 tiles and in f32, cum and w.
+template <int PT, int NK>
+__global__ void __launch_bounds__(MAX_THREADS)
+ssd_chunk_kernel(const bf16* __restrict__ x, const bf16* __restrict__ b,
+                 const bf16* __restrict__ c, const float* __restrict__ a,
+                 bf16* __restrict__ y, float* __restrict__ state,
+                 float* __restrict__ hs, int* __restrict__ flags, int bh,
+                 int len, int p, int n, int chunk, Strides xs, Strides bs,
+                 Strides cs, Strides as) {
+  constexpr int PP = 16 * PT, NP = 16 * NK, LDB = NP + 8, LDX = PP + 8;
+  constexpr int LDH = PP + 8;                       // f32 h_in row pitch
+  constexpr int WARPS = MAX_THREADS / 32;
+  constexpr int ITEMS = (NK * PT + WARPS - 1) / WARPS;   // Hc tiles a warp
+  extern __shared__ __align__(16) unsigned char ssd_smem[];
+  bf16* Cs = reinterpret_cast<bf16*>(ssd_smem);   // [chunk][LDB]
+  bf16* Bs = Cs + chunk * LDB;                    // [chunk][LDB]
+  bf16* Xs = Bs + chunk * LDB;                    // [chunk][LDX]
+  bf16* Hs = Xs + chunk * LDX;                    // [3][NP][LDX]: hi, mid, lo
+  float* Hf = reinterpret_cast<float*>(Hs + 3 * NP * LDX);   // [NP][LDH]
+  float* cum = Hf + NP * LDH;                                // [chunk]
+  float* w = cum + chunk;                                    // [chunk]
+  __shared__ int ticket;
+
+  const int nc = (len + chunk - 1) / chunk;
+  if (threadIdx.x == 0) ticket = atomicAdd(flags + bh * nc, 1);
+  __syncthreads();
+  const int s = ticket % bh, ci = ticket / bh;
+  const int t0 = ci * chunk;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;   // fragment row, column pair
+  stage_rows<NP, LDB>(Bs, b + s * bs.bh, bs.l, t0, chunk, len, n);
+  stage_rows<PP, LDX>(Xs, x + s * xs.bh, xs.l, t0, chunk, len, p);
+  stage_rows<NP, LDB>(Cs, c + s * cs.bh, cs.l, t0, chunk, len, n);
+  // h_in, the state after chunk ci - 1, which that chunk's block published
+  // (it holds an earlier ticket, and with more series than blocks in
+  // flight it is done): fetched while the inputs are in flight
+  const long long np = static_cast<long long>(n) * p;
+  float* hseries = hs + static_cast<long long>(s) * (nc - 1) * np;
+  if (ci > 0) {
+    if (threadIdx.x == 0) wait_flag(flags + s * nc + ci - 1);
+    __syncthreads();
+    const float* hb = hseries + (ci - 1) * np;
+    constexpr int CH = PP / 4;
+    for (int idx = threadIdx.x; idx < NP * CH; idx += blockDim.x) {
+      const int r = idx / CH, col = 4 * (idx % CH);
+      const bool ok = r < n && col < p;
+      cp_async16(Hf + r * LDH + col, ok ? hb + r * p + col : hb, ok);
+    }
+  }
+  cp_async_commit();
+  if (warp == 0) chunk_cumsum(cum, a + s * as.bh, as.l, t0, len, chunk);
+  __syncthreads();
+  const float total = cum[chunk - 1];
+  for (int j = threadIdx.x; j < chunk; j += blockDim.x)
+    w[j] = expf(total - cum[j]);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // Hc = (diag(w) B)^T x.  Warp `warp` owns the 16 x 16 tiles idx = warp +
+  // WARPS it of the (NP x PP) state: rows m0 = 16 (idx % NK), the same for
+  // all its tiles as NK divides WARPS, columns 16 (idx / NK).
+  const int m0 = 16 * (warp % NK);
+  float hacc[ITEMS][2][4];
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hacc[it][h][e] = 0.f;
+  for (int k0 = 0; k0 < chunk; k0 += 16) {
+    // A[m][k] = w_k B[k][m]: ldmatrix.trans of the [k][n] tile; a0, a1
+    // hold steps k0 + 2t, k0 + 2t + 1, a2, a3 the same plus 8
+    uint32_t bf[4], hi[4], mid[4], lo[4];
+    ldmatrix_x4_trans(bf, Bs + (k0 + b_row(lane)) * LDB + m0 + b_col(lane));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = k0 + 2 * t + 8 * (e >> 1);
+      const float2 v = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&bf[e]));
+      split3(v.x * w[k], v.y * w[k + 1], hi[e], mid[e], lo[e]);
+    }
+    uint32_t xf[ITEMS][4];
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      const int idx = warp + WARPS * it;
+      if (idx < NK * PT)
+        ldmatrix_x4_trans(xf[it], Xs + (k0 + a_row(lane)) * LDX + 16 * (idx / NK) +
+                                      a_col(lane));
+    }
+#pragma unroll
+    for (int piece = 0; piece < 3; ++piece) {
+      const uint32_t(&pa)[4] = piece == 0 ? lo : piece == 1 ? mid : hi;
+#pragma unroll
+      for (int it = 0; it < ITEMS; ++it)
+        if (warp + WARPS * it < NK * PT) {
+          mma_bf16(hacc[it][0], pa, xf[it][0], xf[it][1]);
+          mma_bf16(hacc[it][1], pa, xf[it][2], xf[it][3]);
+        }
+    }
+  }
+
+  // the state after this chunk, exp(total) h_in + Hc: into the scratch for
+  // the next chunk's block (the flag that hands it over is set at the end),
+  // or the final state
+  float* hout = ci < nc - 1 ? hseries + ci * np
+                            : state == nullptr ? nullptr : state + s * np;
+  if (hout != nullptr) {
+    const float decay = expf(total);
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      const int idx = warp + WARPS * it;
+      if (idx >= NK * PT) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = m0 + g + 8 * r, col = 16 * (idx / NK) + 8 * h + 2 * t;
+          if (row >= n || col >= p) continue;
+          const float2 hin = ci > 0 ? *reinterpret_cast<const float2*>(Hf + row * LDH + col)
+                                    : make_float2(0.f, 0.f);
+          *reinterpret_cast<float2*>(hout + row * p + col) = make_float2(
+              __fadd_rn(__fmul_rn(decay, hin.x), hacc[it][h][2 * r]),
+              __fadd_rn(__fmul_rn(decay, hin.y), hacc[it][h][2 * r + 1]));
+        }
+    }
+  }
+  if (ci > 0) {   // h_in as three bf16 tiles
+    for (int idx = threadIdx.x; idx < NP * PP / 2; idx += blockDim.x) {
+      const int r = idx / (PP / 2), col = 2 * (idx % (PP / 2));
+      const float2 v = *reinterpret_cast<const float2*>(Hf + r * LDH + col);
+      uint32_t hi, mid, lo;
+      split3(v.x, v.y, hi, mid, lo);
+      *reinterpret_cast<uint32_t*>(Hs + r * LDX + col) = hi;
+      *reinterpret_cast<uint32_t*>(Hs + (NP + r) * LDX + col) = mid;
+      *reinterpret_cast<uint32_t*>(Hs + (2 * NP + r) * LDX + col) = lo;
+    }
+    __syncthreads();
+  }
+
+  // y: warps below chunk / 16 own 16 chunk rows each, dealt so that warps
+  // w and w + 4, which share a sub-partition of the SM, together take as
+  // many causal steps (tile + 1 each) as any other pair
+  const int nw = chunk / 16, half = nw / 2;
+  if (warp < nw) {
+    const int i0 = 16 * (warp < half ? warp : nw - 1 - (warp - half));
+    chunk_rows<PT, NK>(Cs, Bs, Xs, Hs, cum, y + static_cast<long long>(s) * len * p,
+                       i0, ci, t0, len, p, lane);
+  }
+  if (ci < nc - 1) {   // hand the state over: every store of it is visible
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) flag_release(flags + s * nc + ci);
+  }
 }
 
-int smem_bytes_out(int p, int n, int chunk) {
+int smem_bytes_bf16(int p, int n, int chunk) {
   const int pp = 16 * tiles16(p), np = 16 * tiles16(n);
   const int ldb = np + 8, ldx = pp + 8;
   return (2 * chunk * ldb + chunk * ldx + 3 * np * ldx) *
              static_cast<int>(sizeof(bf16)) +
-         (np * pp + chunk) * static_cast<int>(sizeof(float));
+         (np * (pp + 8) + 2 * chunk) * static_cast<int>(sizeof(float));
 }
 
-// Lets `kernel` take `smem` bytes of dynamic shared memory, and asks for the
-// largest shared-memory carveout, so that as many blocks as fit share an SM.
+// Lets `kernel` take `smem` bytes of dynamic shared memory.
 template <typename K>
 cudaError_t allow_smem(K kernel, int smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess || smem <= 48 * 1024) return err;
+  if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem);
 }
@@ -669,49 +663,28 @@ struct Bf16Args {
   const bf16 *x, *b, *c;
   const float* a;
   bf16* y;
-  float *state, *hc, *totals;
+  float *state, *hs;
+  int* flags;
   int bh, len, p, n, chunk;
   Strides xs, bs, cs, as;
 };
 
-// The three kernels in order on `stream`, group of series after group;
+// Clears the flags and the ticket counter, then launches the kernel;
 // returns the first cudaError.
 template <int PT, int NK>
 cudaError_t launch_bf16(const Bf16Args& g, cudaStream_t stream) {
   const int nc = (g.len + g.chunk - 1) / g.chunk;
-  const int smem1 = smem_bytes_state(g.p, g.n, g.chunk);
-  const int smem3 = smem_bytes_out(g.p, g.n, g.chunk);
-  cudaError_t err = allow_smem(ssd_chunk_state_kernel<PT, NK>, smem1);
-  if (err == cudaSuccess) err = allow_smem(ssd_chunk_out_kernel<PT, NK>, smem3);
+  const int smem = smem_bytes_bf16(g.p, g.n, g.chunk);
+  cudaError_t err = allow_smem(ssd_chunk_kernel<PT, NK>, smem);
   if (err != cudaSuccess) return err;
-  const long long np = static_cast<long long>(g.n) * g.p;
-  const long long series_bytes = 4 * nc * np + 2LL * g.len * (g.p + 2 * g.n);
-  const int group = GROUP_BYTES == 0 ? g.bh : static_cast<int>(
-      std::max(1LL, std::min<long long>(g.bh, GROUP_BYTES / series_bytes)));
-  for (int s0 = 0; s0 < g.bh; s0 += group) {
-    const int bh = std::min(group, g.bh - s0);
-    const bf16* x = g.x + s0 * g.xs.bh;
-    const bf16* b = g.b + s0 * g.bs.bh;
-    const bf16* c = g.c + s0 * g.cs.bh;
-    const float* a = g.a + s0 * g.as.bh;
-    float* hc = g.hc + static_cast<long long>(s0) * nc * np;
-    float* totals = g.totals + static_cast<long long>(s0) * nc;
-    const dim3 grid(bh, nc);
-    ssd_chunk_state_kernel<PT, NK><<<grid, 32 * NK, smem1, stream>>>(
-        x, b, a, hc, totals, g.len, g.p, g.n, g.chunk, g.xs, g.bs, g.as);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const long long threads = bh * np / 4;
-    ssd_state_pass_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256,
-                            0, stream>>>(
-        hc, totals, g.state == nullptr ? nullptr : g.state + s0 * np, bh, nc,
-        static_cast<int>(np / 4));
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ssd_chunk_out_kernel<PT, NK><<<grid, 32 * (g.chunk / 16), smem3, stream>>>(
-        x, b, c, a, hc, g.y + s0 * static_cast<long long>(g.len) * g.p, g.len,
-        g.p, g.n, g.chunk, g.xs, g.bs, g.cs, g.as);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  const long long blocks = static_cast<long long>(g.bh) * nc;
+  err = cudaMemsetAsync(g.flags, 0, (blocks + 1) * sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  ssd_chunk_kernel<PT, NK><<<static_cast<unsigned>(blocks), MAX_THREADS, smem,
+                             stream>>>(
+      g.x, g.b, g.c, g.a, g.y, g.state, g.hs, g.flags, g.bh, g.len, g.p, g.n,
+      g.chunk, g.xs, g.bs, g.cs, g.as);
+  return cudaGetLastError();
 }
 
 template <int PT>
@@ -733,11 +706,9 @@ extern "C" int repro_ssd_scan_smem_bytes(int p, int n, int chunk) {
   return repro::ssd::smem_bytes_f32(p, n, chunk);
 }
 
-// Shared memory the largest block of the bf16 kernels needs (bytes).
+// Shared memory one block of the bf16 kernel needs (bytes).
 extern "C" int repro_ssd_chunked_smem_bytes(int p, int n, int chunk) {
-  using namespace repro::ssd;
-  const int a = smem_bytes_state(p, n, chunk), b = smem_bytes_out(p, n, chunk);
-  return a > b ? a : b;
+  return repro::ssd::smem_bytes_bf16(p, n, chunk);
 }
 
 // f32: x (bh, len, p), b/c (bh, len, n), unit stride over the last axis and
@@ -765,15 +736,16 @@ extern "C" int repro_ssd_scan(const void* x, const void* b, const void* c,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16: the same operands in bf16 (a and state f32), plus the f32 scratch
-// the wrapper allocates: hc (bh, nc, n, p) and totals (bh, nc), nc the
-// number of chunks.  p, n and the (series, step) strides multiples of 8,
-// 16-byte aligned pointers, p <= 64, n <= 128, chunk a multiple of 16 up to
-// 128 and the shared-memory size are checked by the Python wrapper.
-// Launches the three kernels in order; returns the first cudaError.
+// bf16: the same operands in bf16 (a and state f32), plus the scratch the
+// wrapper allocates: hs (bh, nc - 1, n, p) f32, the state after each chunk
+// but the last, and flags (bh nc + 1) int32, nc the number of chunks.  p,
+// n and the (series, step) strides multiples of 8, 16-byte aligned
+// pointers, p <= 64, n <= 128, chunk a multiple of 16 up to 128 and the
+// shared-memory size are checked by the Python wrapper.  Returns the first
+// cudaError.
 extern "C" int repro_ssd_scan_bf16(const void* x, const void* b, const void* c,
                                    const void* a, void* y, void* state,
-                                   void* hc, void* totals, int bh, int len,
+                                   void* hs, void* flags, int bh, int len,
                                    int p, int n, int chunk, long long xsb,
                                    long long xsl, long long bsb, long long bsl,
                                    long long csb, long long csl, long long asb,
@@ -783,7 +755,7 @@ extern "C" int repro_ssd_scan_bf16(const void* x, const void* b, const void* c,
   const Bf16Args args{static_cast<const bf16*>(x), static_cast<const bf16*>(b),
                       static_cast<const bf16*>(c), static_cast<const float*>(a),
                       static_cast<bf16*>(y), static_cast<float*>(state),
-                      static_cast<float*>(hc), static_cast<float*>(totals),
+                      static_cast<float*>(hs), static_cast<int*>(flags),
                       bh, len, p, n, chunk, Strides{xsb, xsl}, Strides{bsb, bsl},
                       Strides{csb, csl}, Strides{asb, asl}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -3,10 +3,10 @@
 Counterpart of ``repro.kernels.ssd_scan``.  Recurrence per series:
 h_t = exp(a_t) h_{t-1} + B_t (x) x_t, y_t = C_t . h_t, with h in R^{N x P}.
 On a CUDA tensor :func:`ssd_scan` launches ``csrc/ssd_scan.cu``: for bf16
-operands three kernels, chunk-parallel, with every product on the tensor
-cores (``ssd_chunk_state_kernel``, ``ssd_state_pass_kernel``,
-``ssd_chunk_out_kernel``; the three products with an f32 operand as three
-bf16 products of its exact split, see :func:`ssd_scan_split_plain`); for
+operands ``ssd_chunk_kernel``, one block per chunk of each series, the
+state carried from chunk to chunk by an ordered look-back, every product
+on the tensor cores (the three with an f32 operand as three bf16 products
+of its exact split, see :func:`ssd_scan_split_plain`); for
 f32 operands ``ssd_kernel`` (one block per series, the chunk axis a loop
 inside it, plain f32 FMA).  On a CPU tensor it uses :func:`ssd_scan_plain`,
 the same chunked computation in plain torch.  Both can return the final
@@ -172,10 +172,10 @@ def ssd_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     Returns y (BH, L, P) in x's dtype, and with ``return_state`` also the
     final state (BH, N, P) in f32.  A ragged last chunk needs no padding;
     operands are read through their (series, step) strides.  bf16 launches
-    the three chunk-parallel kernels, with an f32 scratch of (BH, NC, N, P)
-    chunk states (NC the number of chunks) and (BH, NC) chunk log-decays;
-    f32 launches ``ssd_kernel``.  Neither falls back to the plain
-    version."""
+    ``ssd_chunk_kernel``, one block per chunk of each series, with an f32
+    scratch of (BH, NC - 1, N, P) states between chunks (NC the number of
+    chunks) and BH NC + 1 int32 flags; f32 launches ``ssd_kernel``.
+    Neither falls back to the plain version."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, b, c, a, chunk=chunk,
                               return_state=return_state)
@@ -194,9 +194,10 @@ def ssd_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
             y.data_ptr(), state.data_ptr() if return_state else None]
     if x.dtype == torch.bfloat16:
         nc = -(-length // chunk)
-        hc = torch.empty((bh, nc, n, p), dtype=torch.float32, device=x.device)
-        totals = torch.empty((bh, nc), dtype=torch.float32, device=x.device)
-        args += [hc.data_ptr(), totals.data_ptr()]
+        states = torch.empty((bh, nc - 1, n, p), dtype=torch.float32,
+                             device=x.device)
+        flags = torch.empty(bh * nc + 1, dtype=torch.int32, device=x.device)
+        args += [states.data_ptr(), flags.data_ptr()]
     args += [bh, length, p, n, chunk]
     args += [s for t in (x, b, c, a) for s in t.stride()[:2]]
     launch = (build.library().repro_ssd_scan_bf16 if x.dtype == torch.bfloat16

@@ -344,10 +344,10 @@ class _SmemQuery:
 
     @staticmethod
     def repro_ssd_chunked_smem_bytes(p, n, chunk):
-        """The bf16 kernels' largest block, ``ssd_chunk_out_kernel``'s: C,
-        B and x tiles and three bf16 pieces of h_in, rows padded by 8, h_in
-        in f32 and the chunk's prefix sums; P and N padded to 16, 32, 64 or
-        128."""
+        """A block of the bf16 kernel, ``ssd_chunk_kernel``: C, B and x
+        tiles and three bf16 pieces of h_in, rows padded by 8, h_in in f32
+        (rows padded by 8), and the chunk's prefix sums and weights; P and
+        N padded to 16, 32, 64 or 128."""
         def padded(v):
             t = 16
             while t < v:
@@ -356,10 +356,8 @@ class _SmemQuery:
 
         pp, np_ = padded(p), padded(n)
         ldb, ldx = np_ + 8, pp + 8
-        out = 2 * (2 * chunk * ldb + chunk * ldx + 3 * np_ * ldx) \
-            + 4 * (np_ * pp + chunk)
-        state = 2 * chunk * (ldb + ldx) + 8 * chunk
-        return max(out, state)
+        return 2 * (2 * chunk * ldb + chunk * ldx + 3 * np_ * ldx) \
+            + 4 * (np_ * ldx + 2 * chunk)
 
 
 @pytest.mark.parametrize("p,n,chunk,takes", [
@@ -381,7 +379,7 @@ def test_ssd_fits_asks_the_library_size_query(monkeypatch, p, n, chunk,
 
 
 @pytest.mark.parametrize("p,n,chunk,dtype,takes", [
-    (64, 128, 128, torch.bfloat16, True),    # mamba2's state: 176,640 bytes
+    (64, 128, 128, torch.bfloat16, True),    # mamba2's state: 181,248 bytes
     (64, 128, 128, torch.float32, False),    # the f32 kernel: 265,216 bytes
     (64, 64, 128, torch.bfloat16, True),     # Zamba2's state
     (64, 120, 128, torch.bfloat16, True),    # N padded to 128 in the tiles
@@ -393,6 +391,6 @@ def test_ssd_fits_is_dtype_aware(monkeypatch, p, n, chunk, dtype, takes):
     mamba2-2.7b's N = 128 at chunk 128; f32 keeps the one-block-per-series
     kernel's limit, so there the ``auto`` mode still runs it dense."""
     from repro_torch.kernels import build, ssd_scan as KS
-    assert _SmemQuery.repro_ssd_chunked_smem_bytes(64, 128, 128) == 176640
+    assert _SmemQuery.repro_ssd_chunked_smem_bytes(64, 128, 128) == 181248
     monkeypatch.setattr(build, "library", lambda: _SmemQuery)
     assert KS.fits(p, n, chunk, dtype) is takes

@@ -9,8 +9,7 @@ together) into the git-ignored ``src/repro_torch/kernels/_build/variants/``.
 Each is timed at the served Zamba2 shape (320, 2048, 64, 64) and at
 mamba2-2.7b's state (320, 2048, 64, 128), bf16, chunk 128, in turns with
 the committed source: the whole call (CUDA events, median of 7 x 10 calls,
-warm L2) and each of its three kernels (``torch.profiler``, mean of 10
-calls).  Variants that are not marked as diagnostics are held against
+warm L2) and each of its kernels (``torch.profiler``, mean of 10 calls).  Variants that are not marked as diagnostics are held against
 ``ssd_scan_plain``; diagnostics skip work and are wrong by design.  Prints
 one JSON line per variant and shape, and the card's ``nvidia-smi`` line.
 """
@@ -32,38 +31,39 @@ OUT = build.BUILD_ROOT / "variants"
 SHAPES = [(320, 2048, 64, 64), (320, 2048, 64, 128)]
 CHUNK = 128
 
-_OUT_COMPUTE = "  // warp w owns row tile w of the first half"
+_Y_PART = "  if (warp < nw) {"
 _CHIN = ("  // y = diag(exp(cum)) C h_in, h_in exact as three bf16 pieces\n"
          "  if (ci > 0) {")
-_STEPS = ("  for (; j0 + 16 * KEY_STEPS <= i0;", "  for (; j0 < i0; j0 += 16)",
-          "  causal_steps<1, PT, NK>(acc, cf, Bs, Xs, cum, cum_i, i0, i0, true")
+_STEPS = ("  for (int j0 = 0; j0 < i0; j0 += 16)",
+          "  causal_step<PT, NK>(acc, cf, Bs, Xs, cum, cum_i, i0, i0, true")
 _DECAY = "sc[nt][e] * expf(cum_i[e >> 1] - cum[j])"
 _PIECES = "for (int piece = 0; piece < 3; ++piece) {"
-_KEY_STEPS = "constexpr int KEY_STEPS = 1;"
-_GROUP = "constexpr long long GROUP_BYTES = 0;"
+_ALLOW = ("cudaError_t allow_smem(K kernel, int smem) {\n"
+          "  if (smem <= 48 * 1024) return cudaSuccess;")
 
 # name: ([(old, new), ...], diagnostic)
 VARIANTS = {
     "committed": ([], False),
-    # off-diagonal key steps taken two or four at a time
-    "key_steps_2": ([(_KEY_STEPS, _KEY_STEPS.replace("1", "2"))], False),
-    "key_steps_4": ([(_KEY_STEPS, _KEY_STEPS.replace("1", "4"))], False),
-    # series in groups of at most 16, 32, 48 or 96 MB of scratch and inputs
-    **{f"group_{mb}mb": ([(_GROUP, _GROUP.replace("= 0", f"= {mb}LL << 20"))],
-                         False) for mb in (16, 32, 48, 96)},
+    # the largest shared-memory carveout asked for before the launch
+    "max_carveout": ([(_ALLOW, _ALLOW.replace(
+        "  if (smem <= 48 * 1024) return cudaSuccess;",
+        "  cudaFuncSetAttribute(kernel,\n"
+        "                       cudaFuncAttributePreferredSharedMemoryCarveout,\n"
+        "                       cudaSharedmemCarveoutMaxShared);\n"
+        "  if (smem <= 48 * 1024) return cudaSuccess;"))], False),
     # the decay with the fast exponential (ex2.approx of x log2 e)
     "fast_decay_exp": ([(_DECAY, _DECAY.replace("expf(", "__expf("))],
                        False),
-    # diagnostics of ssd_chunk_out_kernel: its loads and the split of h_in
-    # alone; without C h_in; without the causal steps; without the decay's
-    # exponentials
-    "out_loads_only": ([(_OUT_COMPUTE, "  return;\n" + _OUT_COMPUTE)], True),
+    # diagnostics: the loads, Hc, the hand-over of the state and the split
+    # of h_in alone (no y); without C h_in; without the causal steps;
+    # without the decay's exponentials; the products with an f32 operand
+    # as one piece (hi)
+    "no_y": ([(_Y_PART, "  if (false) {")], True),
     "no_c_h_in": ([(_CHIN, _CHIN.replace("if (ci > 0)", "if (false)"))],
                   True),
     "no_causal_steps": ([(old, "  if (false)\n" + old) for old in _STEPS],
                         True),
     "no_decay_exp": ([(_DECAY, "sc[nt][e]")], True),
-    # the products with an f32 operand as one piece (hi) in both kernels
     "one_piece": ([(_PIECES, _PIECES.replace("piece = 0", "piece = 2"))],
                   True),
 }
@@ -112,13 +112,14 @@ def run(lib, x, b, c, a):
     nc = -(-length // CHUNK)
     y = torch.empty_like(x)
     state = torch.empty((bh, n, p), dtype=torch.float32, device=x.device)
-    hc = torch.empty((bh, nc, n, p), dtype=torch.float32, device=x.device)
-    totals = torch.empty((bh, nc), dtype=torch.float32, device=x.device)
+    states = torch.empty((bh, nc - 1, n, p), dtype=torch.float32,
+                         device=x.device)
+    flags = torch.empty(bh * nc + 1, dtype=torch.int32, device=x.device)
     strides = [s for t in (x, b, c, a) for s in t.stride()[:2]]
     err = lib.repro_ssd_scan_bf16(
         x.data_ptr(), b.data_ptr(), c.data_ptr(), a.data_ptr(), y.data_ptr(),
-        state.data_ptr(), hc.data_ptr(), totals.data_ptr(), bh, length, p, n,
-        CHUNK, *strides, build.stream_ptr(x.device))
+        state.data_ptr(), states.data_ptr(), flags.data_ptr(), bh, length, p,
+        n, CHUNK, *strides, build.stream_ptr(x.device))
     build.check(err, "ssd variant")
     return y, state
 
