@@ -5,9 +5,12 @@
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the hand-written kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``,
-sm_90a; the tensor-core flash and SSD kernels, the Gram kernels and the
-tall-apply kernels must build without register spills), holds each kernel
-against its plain PyTorch version (the complex Gram also for exact
+sm_90a; the tensor-core flash and SSD kernels, the Gram kernels, the
+tall-apply kernels and the tiled GEMM must build without register spills),
+holds each kernel against its plain PyTorch version (the tiled GEMM
+through ``ops.matmul``, also at a ragged K, a row-major multi-tile output
+and a misaligned view, bit for bit on repeat and one launch a call, and
+timed with the L2 cold as well as warm; the complex Gram also for exact
 Hermiticity and bit-for-bit repeats; the tall-apply and the SSD scan for
 bit-for-bit repeats, and the complex tall-apply on conj and strided views
 and at a depth K beyond the old shared-memory limit; the bf16 flash kernel
@@ -67,6 +70,10 @@ LM_DECODE = 64
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_TC_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# Written between the calls of a cold-L2 timing: more than the 50 MB L2.
+FLUSH_BYTES = 128 * 2**20
+# Cycles the card sleeps before each cold-L2 call (about 1 ms at 1.98 GHz).
+SLEEP_CYCLES = 2_000_000
 
 TOL_F32 = 1e-5           # kernel vs plain, relative Frobenius, f32
 TOL_BF16 = 2e-2          # bf16 multiplicands vs f32 (kernel_bf16_gemm budget)
@@ -134,7 +141,8 @@ def rel(a, b) -> float:
 # dimension 16, 32, ..., 128; the Gram kernels: <complex, bf16>; the
 # tall-apply: <complex, bf16, conj B>, 4 complex and 2 real; the
 # chunk-parallel bf16 SSD kernel: <P tiles, N tiles>, P in 1, 2 or 4 and N
-# in 1, 2, 4 or 8 tiles of 16.
+# in 1, 2, 4 or 8 tiles of 16; the tiled GEMM: <A transposed, bf16>, and its
+# reduce.
 NO_SPILL_KERNELS = ((r"flash_mma_kernelILi(\d+)E", "flash_mma_kernel<{}>", 8),
                     (r"gram_tile_kernelILb(\d)ELb(\d)E",
                      "gram_tile_kernel<{},{}>", 4),
@@ -143,7 +151,11 @@ NO_SPILL_KERNELS = ((r"flash_mma_kernelILi(\d+)E", "flash_mma_kernel<{}>", 8),
                     (r"tall_apply_kernelILb(\d)ELb(\d)ELb(\d)E",
                      "tall_apply_kernel<{},{},{}>", 6),
                     (r"ssd_chunk_kernelILi(\d)ELi(\d)E",
-                     "ssd_chunk_kernel<{},{}>", 12))
+                     "ssd_chunk_kernel<{},{}>", 12),
+                    (r"tiled_matmul_kernelILb(\d)ELb(\d)E",
+                     "tiled_matmul_kernel<{},{}>", 4),
+                    (r"tiled_matmul_reduce_kernel()",
+                     "tiled_matmul_reduce_kernel", 1))
 # The kernel a bf16 ssd_scan call launches (once).
 SSD_BF16_KERNEL = "ssd_chunk_kernel"
 
@@ -196,6 +208,30 @@ def time_ms(torch, fn, reps: int = 7, inner: int = 10) -> float:
         end.record()
         end.synchronize()
         vals.append(start.elapsed_time(end) / inner)
+    return statistics.median(vals)
+
+
+def time_cold_ms(torch, fn, reps: int = 21) -> float:
+    """Median over ``reps`` single calls (CUDA events), each after
+    ``FLUSH_BYTES`` were written on the card outside the timed events, so
+    that the call finds its operands in device memory, not in the L2.  The
+    card then sleeps about 1 ms, also outside them, so that the host has
+    queued the call before the start event is reached: the time is the
+    card's, not the wrapper's."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    vals = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.fill_(1.0)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        vals.append(start.elapsed_time(end))
     return statistics.median(vals)
 
 
@@ -259,6 +295,7 @@ def held(torch, name, shape, got, want, tol, **extra):
 def phase_kernels(torch):
     from repro_torch.kernels import gram as KG
     from repro_torch.kernels import matvec as KM
+    from repro_torch.kernels import ops as KO
     from repro_torch.kernels import tiled_matmul as KT
 
     gen = torch.Generator(device="cuda")
@@ -389,23 +426,48 @@ def phase_kernels(torch):
     line["operands"] = "a.conj(), vh[:64].T"
     emit(line)
 
-    # -- tiled_matmul: C = op(A) B, split-K --------------------------------
-    for m, k, n, trans, main in [(72, 82944, 72, True, True),
-                                 (72, 2304, 72, True, True),
-                                 (12, 216, 12, True, False),
-                                 (1, 5, 1, False, False),
-                                 (130, 257, 129, False, False),
-                                 (70, 3000, 200, True, False)]:
-        a = randn(k, m).T if trans else randn(m, k)
-        b = randn(k, n)
-        kern = lambda c, a=a, b=b: KT.tiled_matmul(a, b, compute=c)
+    # -- tiled_matmul through ops.matmul: C = op(A) B, 72 x 72 block tiles,
+    #    split over K.  The main shapes (measured), small ones, a row-major
+    #    multi-tile output, a ragged K, and views one float into their
+    #    storage (no 16-byte copy aligned)
+    def tiled_operands(m, k, n, trans, offset):
+        def view(rows, cols):
+            return randn(rows * cols + offset)[offset:].view(rows, cols)
+        return (view(k, m).T if trans else view(m, k)), view(k, n)
+
+    for m, k, n, trans, offset, main in [
+            (72, 82944, 72, True, 0, True), (72, 2304, 72, True, 0, True),
+            (12, 216, 12, True, 0, False), (1, 5, 1, False, 0, False),
+            (130, 257, 129, False, 0, False), (70, 3000, 200, True, 0, False),
+            (200, 3000, 130, False, 0, False),
+            (72, 82943, 72, True, 0, False), (72, 82944, 72, True, 1, False)]:
+        a, b = tiled_operands(m, k, n, trans, offset)
+        kern = lambda c, a=a, b=b: KO.matmul(a, b, compute=c)
         plain = lambda c, a=a, b=b: KT.tiled_matmul_plain(a, b, compute=c)
         line = compare("tiled_matmul", [m, k, n], kern, plain, bf16=main)
-        line["a_transposed"] = trans
+        line.update(entry="ops.matmul", a_transposed=trans,
+                    offset_floats=offset)
         if main:
             measure("tiled_matmul", line, kern, plain,
                     lambda a=a, b=b: torch.matmul(a, b),
                     2 * m * k * n, 4 * (m * k + k * n + m * n))
+        if main and k == 82944:
+            for c in (None, "bfloat16"):
+                before = KT.tiled_matmul.launches
+                got = kern(c)
+                check(KT.tiled_matmul.launches == before + 1,
+                      f"tiled_matmul {[m, k, n]} {c}: one ops.matmul call "
+                      f"launched {KT.tiled_matmul.launches - before} times")
+                check(torch.equal(kern(c), got),
+                      f"tiled_matmul {[m, k, n]} {c}: a second call differs")
+            line.update(launches_per_call=1, repeats_bitwise=True)
+            # the operands' 47.8 MB nearly fit the 50 MB L2, which a warm
+            # loop reads in part: the share of the bound is the cold one
+            line["ms_cold"] = time_cold_ms(torch, lambda: kern(None))
+            line["library_ms_cold"] = time_cold_ms(
+                torch, lambda a=a, b=b: torch.matmul(a, b))
+            line["share_of_bound_warm"] = line["share_of_bound"]
+            line["share_of_bound"] = line["bound_ms"] / line["ms_cold"]
         emit(line)
     return summary
 
@@ -1145,7 +1207,7 @@ def main() -> int:
     try:
         for _, label, count in NO_SPILL_KERNELS:
             found = {k: v for k, v in no_spill.items()
-                     if k.startswith(label.split("<")[0] + "<")}
+                     if k.split("<")[0] == label.split("<")[0]}
             check(len(found) == count and all(
                 f.get("spill_stores") == 0 and f.get("spill_loads") == 0
                 for f in found.values()),

@@ -13,7 +13,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
-import math
 import os
 import shutil
 import subprocess
@@ -39,7 +38,8 @@ _SIGNATURES = {
     "repro_tall_apply_f32": (_P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I, _P),
     "repro_tall_apply_c64": (_P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I, _I,
                              _I, _P),
-    "repro_tiled_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "repro_tiled_matmul_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "repro_tiled_matmul_splits": (_I, _I, _I, _I),
     "repro_flash_attention": (_P, _P, _P, _P) + (_I,) * 8 + (_L,) * 12 + (_P,),
     "repro_ssd_scan": (_P,) * 6 + (_I,) * 5 + (_L,) * 8 + (_P,),
     "repro_ssd_scan_bf16": (_P,) * 8 + (_I,) * 5 + (_L,) * 8 + (_P,),
@@ -49,8 +49,6 @@ _SIGNATURES = {
 
 # Shared memory one block may use on the H100 (bytes, dynamic).
 MAX_SMEM_BYTES = 232448
-# Blocks that keep the 132 SMs of an H100 busy for a split-K launch.
-TARGET_BLOCKS = 264
 _lib = None
 
 
@@ -180,13 +178,3 @@ def f32_matrix(x, name: str, *, allow_transposed: bool = False):
     raise ValueError(f"{name}: expected a row-major contiguous matrix"
                      + (" or its transpose" if allow_transposed else "")
                      + f", got strides {x.stride()}")
-
-
-def split_k(k: int, tiles: int, depth: int = 16, min_chunk: int = 64):
-    """``(splits, chunk)`` for a deterministic split-K over ``k``: enough
-    blocks (``tiles * splits``) to fill the card, chunks a multiple of the
-    staged ``depth`` and at least ``min_chunk`` deep."""
-    splits = max(1, min(math.ceil(k / min_chunk),
-                        math.ceil(TARGET_BLOCKS / tiles)))
-    chunk = math.ceil(math.ceil(k / splits) / depth) * depth
-    return math.ceil(k / chunk), chunk

@@ -1,7 +1,14 @@
-"""Dispatch wrappers for the LM substrate's two kernels.
+"""Entry points of the hand-written kernels, as ``repro.kernels.ops`` has
+them: ``matmul``, ``gram``, ``attention`` and ``ssd``.
 
-Counterpart of ``repro.kernels.ops`` (``attention`` and ``ssd``).  Each is a
-site of :mod:`repro_torch.kernels.dispatch`: ``attention`` and ``ssd``.
+``matmul`` and ``gram`` follow the reference's ``use_pallas`` switch as
+``use_kernel``: ``None`` means "the operand is on CUDA", as the reference's
+``None`` means "on a TPU".  The kernel route is :func:`tiled_matmul` for
+``matmul``, and :func:`gram` or :func:`gram_complex`, chosen by dtype, for
+``gram``; the plain route is their plain versions.  A kernel wrapper given
+a CPU tensor runs its plain version too, and counts no launch.
+
+``attention`` and ``ssd`` are sites of :mod:`repro_torch.kernels.dispatch`.
 The kernel form is the hand-written CUDA kernel (its plain version on a CPU
 tensor), the dense form is the plain version.  Only float32 and bfloat16
 operands reach a kernel (the hard gate); ``auto`` picks the kernel when the
@@ -14,9 +21,31 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import dispatch
+from repro_torch.kernels import gram as _gram
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.ssd_scan import DTYPES, fits, ssd_scan, ssd_scan_plain
+from repro_torch.kernels.tiled_matmul import tiled_matmul, tiled_matmul_plain
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, use_kernel: bool = None,
+           **kw) -> torch.Tensor:
+    """C = A @ B with f32 accumulation (``compute="bfloat16"`` rounds the
+    multiplicands)."""
+    if use_kernel is None:
+        use_kernel = a.device.type == "cuda"
+    return (tiled_matmul if use_kernel else tiled_matmul_plain)(a, b, **kw)
+
+
+def gram(a: torch.Tensor, use_kernel: bool = None, **kw) -> torch.Tensor:
+    """G = A^T A of real A, G = A^H A of complex64 A."""
+    if use_kernel is None:
+        use_kernel = a.device.type == "cuda"
+    if a.is_complex():
+        fn = _gram.gram_complex if use_kernel else _gram.gram_complex_plain
+    else:
+        fn = _gram.gram if use_kernel else _gram.gram_plain
+    return fn(a, **kw)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,15 +1,16 @@
-"""Blocked GEMM kernel with a deterministic split-K.
+"""General f32 GEMM kernel with a deterministic split over K.
 
 Counterpart of ``repro.kernels.tiled_matmul``.  On a CUDA tensor
-:func:`tiled_matmul` launches ``csrc/tiled_matmul.cu``; on a CPU tensor it
-uses :func:`tiled_matmul_plain`.  ``a`` may be the transpose of a row-major
-matrix (``x.T``), which the kernel reads in place.  No site of the port's
-main path calls it: the complex Gram's cross term, its caller in the
-reference, is computed inside :func:`~repro_torch.kernels.gram.gram_complex`.
+:func:`tiled_matmul` launches ``csrc/tiled_matmul.cu`` (72 x 72 block
+tiles, a ``cp.async`` ring over K, a fixed-order reduce of the splits'
+partials); on a CPU tensor it uses :func:`tiled_matmul_plain`.  ``a`` may
+be the transpose of a row-major matrix (``x.T``), which the kernel reads in
+place.  Its entry point is :func:`repro_torch.kernels.ops.matmul`, as
+``ops.matmul`` is in the reference; no site of the port's main path calls
+it (the complex Gram's cross term, its other caller in the reference, is
+computed inside :func:`~repro_torch.kernels.gram.gram_complex`).
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
@@ -37,14 +38,15 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"tiled_matmul: inner dims differ, {tuple(a.shape)} "
                          f"@ {tuple(b.shape)}")
     n = y.shape[1]
-    splits, chunk = build.split_k(k, math.ceil(m / 64) * math.ceil(n / 64))
+    lib = build.library()
+    sms = build.sm_count(x.device)
+    splits = lib.repro_tiled_matmul_splits(m, k, n, sms)
     c = torch.empty((m, n), dtype=torch.float32, device=x.device)
     work = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
             if splits > 1 else c)
-    err = build.library().repro_tiled_matmul_f32(
+    err = lib.repro_tiled_matmul_f32(
         x.data_ptr(), y.data_ptr(), c.data_ptr(), work.data_ptr(), m, k, n,
-        int(trans), splits, chunk, int(compute is not None),
-        build.stream_ptr(x.device))
+        int(trans), sms, int(compute is not None), build.stream_ptr(x.device))
     build.check(err, "tiled_matmul")
     tiled_matmul.launches += 1
     return c.to(torch.promote_types(a.dtype, b.dtype))

@@ -148,20 +148,59 @@ def test_auto_runs_a_deep_complex_tall_apply_on_the_kernel(cuda):
     assert _crel(got, a @ mat) <= F32_TOL
 
 
+def _tiled_operands(m, k, n, transposed, offset):
+    """op(A) (M, K) and B (K, N): A as the transpose view of a row-major
+    (K, M) matrix or row-major itself; with ``offset``, both views start one
+    float into their storage, so that no 16-byte copy is aligned."""
+    def view(seed, rows, cols):
+        flat = _crand(seed, rows * cols + offset)[offset:]
+        return flat.view(rows, cols)
+
+    a = view(5, k, m).T if transposed else view(5, m, k)
+    return a, view(6, k, n)
+
+
+# (M, K, N, A transposed, offset in floats): the main path's 72-wide output
+# over K = 82,944, and over a ragged K; a row-major multi-tile output; a
+# misaligned view; small and degenerate shapes
+TILED_MATMUL_CASES = [(72, 82944, 72, True, 0), (72, 82943, 72, True, 0),
+                      (200, 3000, 130, False, 0), (72, 82944, 72, True, 1),
+                      (12, 216, 12, True, 0), (130, 257, 129, False, 0),
+                      (1, 5, 1, False, 0)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n,transposed", [(72, 82944, 72, True),
-                                              (12, 216, 12, True),
-                                              (130, 257, 129, False),
-                                              (1, 5, 1, False)])
+@pytest.mark.parametrize("m,k,n,transposed,offset", TILED_MATMUL_CASES)
 @pytest.mark.parametrize("compute", [None, "bfloat16"])
-def test_tiled_matmul_kernel_matches_plain(cuda, m, k, n, transposed, compute):
-    a = _crand(5, k, m).T if transposed else _crand(5, m, k)
-    b = _crand(6, k, n)
+def test_tiled_matmul_kernel_matches_plain(cuda, m, k, n, transposed, offset,
+                                           compute):
+    a, b = _tiled_operands(m, k, n, transposed, offset)
     before = KT.tiled_matmul.launches
     got = KT.tiled_matmul(a, b, compute=compute)
     torch.cuda.synchronize()
     assert KT.tiled_matmul.launches == before + 1
     assert _crel(got, KT.tiled_matmul_plain(a, b, compute)) <= F32_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", [None, "bfloat16"])
+def test_tiled_matmul_repeats_bit_for_bit(cuda, compute):
+    """The splits' partials are summed in a fixed order: no atomics."""
+    a, b = _tiled_operands(72, 82944, 72, True, 0)
+    got = KT.tiled_matmul(a, b, compute=compute)
+    assert torch.equal(KT.tiled_matmul(a, b, compute=compute), got)
+
+
+@pytest.mark.cuda
+def test_ops_matmul_on_a_cuda_tensor_launches_tiled_matmul_once(cuda):
+    from repro_torch.kernels import ops
+    a, b = _tiled_operands(72, 82944, 72, True, 0)
+    before = KT.tiled_matmul.launches
+    got = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert KT.tiled_matmul.launches == before + 1
+    assert torch.equal(got, KT.tiled_matmul(a, b))
+    assert _crel(got, KT.tiled_matmul_plain(a, b)) <= F32_TOL
 
 
 def _c64(seed, m, n):
