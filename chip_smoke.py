@@ -15,15 +15,17 @@ Hermiticity and bit-for-bit repeats; the tall-apply and the SSD scan for
 bit-for-bit repeats, and the complex tall-apply on conj and strided views
 and at a depth K beyond the old shared-memory limit; the bf16 flash kernel
 also within a quarter of the gap of a witness that rounds P to bf16, which
-the f32 contract forbids, and on a probe whose output needs the third bf16
-piece of P; the bf16 SSD scan within a quarter of the gap of a witness
-that rounds its three f32 operands to bf16, and at mamba2-2.7b's state N
-= 128), drives the
-port's main path — an 8x8 PEPS built by QR-update gates to bond D=6, its
+the f32 contract forbids, also at Qwen3-4B's and SmolLM-360M's GQA shapes,
+and on a probe whose output needs the third bf16 piece of P; the bf16 SSD
+scan, at state N = 64 and at mamba2-2.7b's N = 128, within a quarter of
+the gap of a witness that rounds its three f32 operands to bf16), drives the port's
+main path — an 8x8 PEPS built by QR-update gates to bond D=6, its
 two-layer IBMPS norm and cached-environment TFI energy at chi=64, and four
 one-layer amplitudes — in complex64 through the kernels, then again through
 the dense torch path and at complex128, and compares.  Then it serves
-Zamba2-2.7B at full width (random bf16 weights from ``SEED``): a 4 x 2,048
+one model of each ported LM family at full width and depth (random bf16
+weights from ``SEED``), Zamba2-2.7B (hybrid), Qwen3-4B (dense, GQA 32/8 at
+head dimension 128) and Mamba2-2.7B (ssm, SSD state 128): a 4 x 2,048
 token prefill through the flash-attention and SSD-scan kernels, 64 greedy
 decode steps, the same prefill through the plain versions, a
 prefill-then-decode continuation check, and the same weights in f32: kernel
@@ -59,8 +61,9 @@ N_AMPLITUDES = 4
 # small a network to zero; at 0.3 the norm stays O(1).
 THETA_MAX = 0.3
 
-# Zamba2-2.7B serving (lm_serve phase)
-LM_ARCH = "zamba2-2.7b"
+# Served at full width and depth (lm_serve phases): one model of each
+# ported family, hybrid, dense and ssm
+LM_ARCHS = ("zamba2-2.7b", "qwen3-4b", "mamba2-2.7b")
 LM_BATCH = 4
 LM_PROMPT = 2048
 LM_DECODE = 64
@@ -156,8 +159,9 @@ NO_SPILL_KERNELS = ((r"flash_mma_kernelILi(\d+)E", "flash_mma_kernel<{}>", 8),
                      "tiled_matmul_kernel<{},{}>", 4),
                     (r"tiled_matmul_reduce_kernel()",
                      "tiled_matmul_reduce_kernel", 1))
-# The kernel a bf16 ssd_scan call launches (once).
+# The kernels a bf16 ssd_scan and a bf16 flash_attention call launch (once).
 SSD_BF16_KERNEL = "ssd_chunk_kernel"
+FLASH_BF16_KERNEL = "flash_mma_kernel"
 
 
 def no_spill_ptxas(log: str) -> dict:
@@ -618,6 +622,32 @@ def phase_lm_kernels(torch):
             if dtype == torch.bfloat16:
                 within_witness(line, q, k, v, want, causal)
             emit(line)
+    # qwen3-4b's shape, timed (32 query heads over 8 KV heads, d = 128),
+    # and smollm-360m's, held only (15 over 5: GQA group 3, an odd head
+    # count), in the model's (B, S, H, D) storage
+    for hq, hkv, d, timed in ((32, 8, 128, True), (15, 5, 64, False)):
+        b, s = LM_BATCH, LM_PROMPT
+        q = randn(b, s, hq, d, dtype=torch.bfloat16).transpose(1, 2)
+        k, v = (randn(b, s, hkv, d, dtype=torch.bfloat16).transpose(1, 2)
+                for _ in range(2))
+        want = KF.flash_attention_plain(q, k, v, causal=True)
+        line = held(torch, "flash_attention", [b, hq, hkv, s, d],
+                    KF.flash_attention(q, k, v, causal=True), want,
+                    TOL_BF16_OUT, dtype="bfloat16", causal=True)
+        within_witness(line, q, k, v, want, True)
+        if timed:
+            product = s * (s + 1) * d * b * hq
+            nbytes = 2 * 2 * b * s * d * (hq + hkv)
+            measure_line(
+                torch, line, lambda q=q, k=k, v=v: KF.flash_attention(
+                    q, k, v, causal=True),
+                lambda q=q, k=k, v=v: KF.flash_attention_plain(
+                    q, k, v, causal=True),
+                lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), 0.0, nbytes,
+                bf16_flops=product, mixed_flops=product)
+        del q, k, v, want
+        emit(line)
     q, k, v, want = KF.lo_piece_probe("cuda")
     line = held(torch, "flash_attention lo-piece probe", [1, 1, 64, 16],
                 KF.flash_attention(q, k, v, causal=False)[0, 0, :, 0], want,
@@ -664,9 +694,11 @@ def phase_lm_kernels(torch):
               f"differs")
         line["repeats_bitwise"] = True
         del y2, st2
-        if main:
+        if bf16:
             # The f32 contract, where it can be seen: the plain version
             # with its three f32 operands rounded to bf16 (the witness).
+            # At N = 128 this is what holds ssd_chunk_kernel<4,8>, the
+            # instantiation the mamba2-2.7b path runs.
             witness = rel_gap(torch, KS.ssd_scan_split_plain(
                 *args, chunk=chunk, pieces=1), y0)
             line["witness_bf16_operands_vs_plain"] = witness
@@ -907,7 +939,7 @@ def device_profile(prof, wall: float, focus=()):
 
 
 # ---------------------------------------------------------------------------
-# Serving Zamba2-2.7B through the LM kernels
+# Serving the LM families through the LM kernels
 # ---------------------------------------------------------------------------
 
 def logits_gap(torch, got, want):
@@ -938,32 +970,46 @@ def prefill_in(torch, T, mode, params, cfg, tokens, max_seq,
         dispatch.set_kernel_backend(prev)
 
 
-def phase_lm_serve(torch, np):
-    """Zamba2-2.7B at full width with bf16 weights drawn on the card from
-    SEED: prefill 4 x 2,048 tokens through the kernels, decode 64 greedy
-    tokens, and check (a) finite logits, (b) kernel vs plain prefill logits
-    and (c) prefill + decode against the longer prefill, each in bf16 and
-    on the same weights in f32.  The bf16 bounds come from the measured
-    distance of the plain bf16 prefill from the plain f32 one.  Returns the
-    kernels' launch counts of the served prefill and decode."""
+def served_launches(cfg):
+    """The kernels' launches in one prefill of ``cfg``'s stack: one
+    ``flash_attention`` per attention layer, one ``ssd_scan`` per Mamba2
+    layer (decode launches neither)."""
+    if cfg.family == "hybrid":
+        n_groups = cfg.n_layers // cfg.hybrid_group
+        return {"flash_attention": n_groups,
+                "ssd_scan": n_groups * (cfg.hybrid_group - 1)}
+    if cfg.family == "ssm":
+        return {"flash_attention": 0, "ssd_scan": cfg.n_layers}
+    return {"flash_attention": cfg.n_layers, "ssd_scan": 0}
+
+
+def phase_lm_serve(torch, np, arch):
+    """``arch`` at full width and depth with bf16 weights drawn on the card
+    from SEED: prefill 4 x 2,048 tokens through the kernels, decode 64
+    greedy tokens, and check (a) finite logits, (b) kernel vs plain prefill
+    logits and (c) prefill + decode against the longer prefill, each in
+    bf16 and on the same weights in f32.  The bf16 bounds come from the
+    measured distance of the plain bf16 prefill from the plain f32 one.
+    Returns the kernels' launch counts of the served prefill and decode."""
     import dataclasses
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import fits, ssd_scan
     from repro_torch.models import transformer as T
     from repro_torch.models.common import tree_leaves
     from repro_torch.models.model import build
 
-    cfg = get(LM_ARCH)
-    n_groups = cfg.n_layers // cfg.hybrid_group
+    t_phase = time.perf_counter()
+    cfg = get(arch)
+    per_prefill = served_launches(cfg)
     bundle = build(cfg)
     rng = np.random.default_rng(SEED)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab, size=(LM_BATCH, LM_PROMPT))).cuda()
     max_seq = LM_PROMPT + LM_DECODE
-    out = {"phase": "lm_serve", "arch": LM_ARCH, "batch": LM_BATCH,
+    out = {"phase": "lm_serve", "arch": arch, "batch": LM_BATCH,
            "prompt": LM_PROMPT, "decode_tokens": LM_DECODE}
     with torch.no_grad():
         torch.cuda.synchronize()
@@ -974,6 +1020,10 @@ def phase_lm_serve(torch, np):
         out["init_s"] = time.perf_counter() - t0
         out["param_bytes"] = sum(t.numel() * t.element_size()
                                  for _, t in tree_leaves(params))
+        # the draw's f32 temporaries peak above what serving holds: the
+        # served peak (weights, cache, activations) is read from here on
+        out["init_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
 
         # the served run: every count starts at 0 and is read right after
         dispatch.reset_dispatch_stats()
@@ -1007,15 +1057,18 @@ def phase_lm_serve(torch, np):
             counters={k: v for k, v in counters.items()
                       if k.endswith(("_attention_calls", "_ssd_calls"))},
             generated=torch.cat(generated, dim=1)[:, :8].tolist())
-        check(bool(finite), "lm_serve: non-finite logits in prefill or decode")
-        check(prefill_launches == {"flash_attention": n_groups,
-                                   "ssd_scan": n_groups * (cfg.hybrid_group - 1)},
-              f"lm_serve: launches per prefill {prefill_launches}")
-        check(counters["kernel_attention_calls"] == n_groups
-              and counters["kernel_ssd_calls"] == n_groups * (cfg.hybrid_group - 1)
+        check(bool(finite),
+              f"lm_serve {arch}: non-finite logits in prefill or decode")
+        check(prefill_launches == per_prefill and launches == per_prefill,
+              f"lm_serve {arch}: launches per prefill {prefill_launches} "
+              f"and with decode {launches}, expected {per_prefill} and none "
+              f"in decode")
+        check(counters["kernel_attention_calls"]
+              == per_prefill["flash_attention"]
+              and counters["kernel_ssd_calls"] == per_prefill["ssd_scan"]
               and counters["dense_attention_calls"] == 0
               and counters["dense_ssd_calls"] == 0,
-              f"lm_serve: dispatch counters {counters}")
+              f"lm_serve {arch}: dispatch counters {counters}")
 
         # the same prefill again (warm), and through the plain versions
         logits2, _, out["prefill_warm_s"] = prefill_in(
@@ -1025,17 +1078,21 @@ def phase_lm_serve(torch, np):
                                  ProfilerActivity.CUDA]) as prof:
             _, _, wall = prefill_in(torch, T, "kernel", params, cfg, tokens,
                                     max_seq)
-        prof_line = {"phase": "lm_profile", "what": "one kernel-mode "
-                     f"prefill, {LM_BATCH} x {LM_PROMPT} tokens, bf16",
-                     **device_profile(prof, wall, focus=("ssd_",))}
-        prof_line["ssd_device_ms"] = sum(r["device_ms"]
-                                         for r in prof_line["focus"])
+        prof_line = {"phase": "lm_profile", "arch": arch,
+                     "what": f"one kernel-mode prefill, {LM_BATCH} x "
+                     f"{LM_PROMPT} tokens, bf16",
+                     **device_profile(prof, wall, focus=("ssd_", "flash_"))}
+        for word in ("ssd_", "flash_"):
+            prof_line[f"{word}device_ms"] = sum(
+                r["device_ms"] for r in prof_line["focus"] if word in r["name"])
         emit(prof_line)
-        n_ssd = n_groups * (cfg.hybrid_group - 1)
-        calls = sum(r["calls"] for r in prof_line["focus"]
-                    if SSD_BF16_KERNEL in r["name"])
-        check(calls == n_ssd, f"lm_profile: {SSD_BF16_KERNEL} ran {calls} "
-              f"times in a prefill, not {n_ssd}")
+        for kernel, name in ((SSD_BF16_KERNEL, "ssd_scan"),
+                             (FLASH_BF16_KERNEL, "flash_attention")):
+            calls = sum(r["calls"] for r in prof_line["focus"]
+                        if kernel in r["name"])
+            check(calls == per_prefill[name],
+                  f"lm_profile {arch}: {kernel} ran {calls} times in a "
+                  f"prefill, not {per_prefill[name]}")
         step_cache = {k: v.clone() if torch.is_tensor(v) else v
                       for k, v in cache.items()}
         step_cache["index"] = LM_PROMPT
@@ -1045,8 +1102,8 @@ def phase_lm_serve(torch, np):
                                  ProfilerActivity.CUDA]) as prof:
             bundle.serve_step(params, step_cache, tokens[:, -1:])
             torch.cuda.synchronize()
-        emit({"phase": "lm_profile", "what": f"one decode step, batch "
-              f"{LM_BATCH}, bf16", **device_profile(
+        emit({"phase": "lm_profile", "arch": arch, "what": f"one decode "
+              f"step, batch {LM_BATCH}, bf16", **device_profile(
                   prof, time.perf_counter() - t0)})
         del step_cache
         dense, _, out["prefill_dense_s"] = prefill_in(
@@ -1059,44 +1116,67 @@ def phase_lm_serve(torch, np):
             torch, T, bundle, params, cfg, tokens, logits)
 
         # the same weights in f32 (the bf16 values, exactly): (b) and (c)
-        # as rounding comparisons, and the bf16 model's rounding floor
+        # as rounding comparisons, and the bf16 model's rounding floor.
+        # Where the f32 SSD kernel does not fit the state (mamba2's N =
+        # 128), "auto" runs the SSD dense, as it does for any f32 caller:
+        # then the bf16 checks hold the SSD kernel on this path, and the
+        # kernels phase holds it at the same shape against its witness.
         cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
                                     act_dtype=torch.float32)
+        f32_mode = "kernel"
+        if cfg.family != "dense" and not fits(
+                cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk, torch.float32):
+            f32_mode = "auto"
+            out["f32_note"] = (
+                f"the f32 SSD kernel does not fit N = {cfg.ssm_state} at "
+                f"chunk {cfg.ssm_chunk}, so 'auto' runs the f32 SSD dense: "
+                f"the f32 kernel-vs-plain gap holds no SSD kernel here; the "
+                f"bf16 checks hold {SSD_BF16_KERNEL}, and the kernels phase "
+                f"holds it at this shape within {WITNESS_SHARE} of the "
+                f"bf16-operand witness")
+        out["f32_mode"] = f32_mode
         params32 = as_f32(params)
         del params, cache
         torch.cuda.empty_cache()
+        dispatch.reset_dispatch_stats()
         kern32, kcache, out["f32_prefill_s"] = prefill_in(
-            torch, T, "kernel", params32, cfg32, tokens, LM_PROMPT,
+            torch, T, f32_mode, params32, cfg32, tokens, LM_PROMPT,
             torch.float32)
+        out["f32_counters"] = {
+            k: v for k, v in dispatch.dispatch_stats().items()
+            if k.endswith(("_attention_calls", "_ssd_calls"))}
         dense32, dcache, out["f32_prefill_dense_s"] = prefill_in(
             torch, T, "dense", params32, cfg32, tokens, LM_PROMPT,
             torch.float32)
         out["f32_kernel_vs_dense"], _ = logits_gap(torch, kern32, dense32)
         out["f32_cache_kernel_vs_dense"] = {
             key: logits_gap(torch, kcache[key], dcache[key])[0]
-            for key in ("k", "v", "ssm_h", "ssm_conv")}
+            for key in kcache if key != "index"}
         del kcache, dcache
         out["bf16_floor"], _ = logits_gap(torch, dense, dense32)
         out["bf16_kernel_vs_f32"], _ = logits_gap(torch, logits, dense32)
         out["f32_decode_vs_prefill"] = decode_vs_prefill(
             torch, T, build(cfg32), params32, cfg32, tokens, kern32,
-            torch.float32)
+            torch.float32, f32_mode)
         del params32
         torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     bf16_tol = LM_BF16_FLOORS * out["bf16_floor"]
     check(out["bf16_floor"] <= TOL_LM_BF16_FLOOR,
-          f"lm_serve: bf16 plain vs f32 plain logits {out['bf16_floor']}")
+          f"lm_serve {arch}: bf16 plain vs f32 plain logits "
+          f"{out['bf16_floor']}")
     check(out["f32_kernel_vs_dense"] <= TOL_LM_F32,
-          f"lm_serve: f32 kernel vs plain logits {out['f32_kernel_vs_dense']}")
+          f"lm_serve {arch}: f32 kernel vs plain logits "
+          f"{out['f32_kernel_vs_dense']}")
     check(out["bf16_kernel_vs_dense"] <= bf16_tol,
-          f"lm_serve: bf16 kernel vs plain logits {out['bf16_kernel_vs_dense']}"
-          f" > {bf16_tol}")
+          f"lm_serve {arch}: bf16 kernel vs plain logits "
+          f"{out['bf16_kernel_vs_dense']} > {bf16_tol}")
     check(out["f32_decode_vs_prefill"]["allclose_excess"] <= 0,
-          f"lm_serve: f32 prefill + decode vs prefill "
+          f"lm_serve {arch}: f32 prefill + decode vs prefill "
           f"{out['f32_decode_vs_prefill']}")
     check(out["bf16_decode_vs_prefill"]["rel"] <= bf16_tol,
-          f"lm_serve: bf16 prefill + decode vs prefill "
+          f"lm_serve {arch}: bf16 prefill + decode vs prefill "
           f"{out['bf16_decode_vs_prefill']} > {bf16_tol}")
     return launches
 
@@ -1109,10 +1189,11 @@ def as_f32(tree):
 
 
 def decode_vs_prefill(torch, T, bundle, params, cfg, tokens, want,
-                      cache_dtype=None):
-    """Check (c): prefill all but the last token, decode the last one, and
-    compare with ``want``, the logits of the prefill of all the tokens."""
-    _, cache, _ = prefill_in(torch, T, "kernel", params, cfg, tokens[:, :-1],
+                      cache_dtype=None, mode="kernel"):
+    """Check (c): prefill all but the last token (sites in ``mode``),
+    decode the last one, and compare with ``want``, the logits of the
+    prefill of all the tokens."""
+    _, cache, _ = prefill_in(torch, T, mode, params, cfg, tokens[:, :-1],
                              tokens.shape[1], cache_dtype)
     got, _ = bundle.serve_step(params, cache, tokens[:, -1:])
     rel_gap, excess = logits_gap(torch, got, want)
@@ -1220,7 +1301,10 @@ def main() -> int:
         phase_profile(torch, state)
         del state
         torch.cuda.empty_cache()
-        launches.update(phase_lm_serve(torch, np))
+        by_path = {"peps": dict(launches)}
+        for arch in LM_ARCHS:
+            by_path[arch] = phase_lm_serve(torch, np, arch)
+            torch.cuda.empty_cache()
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
@@ -1244,8 +1328,11 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in sources.items():
         s = summary[name]
+        paths = {path: counts[name] for path, counts in by_path.items()
+                 if name in counts}
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": sum(paths.values()),
+                        "launches_by_path": paths,
                         "shape": s["shape"], "max_abs_err": s["max_abs_err"],
                         "ms": s["ms"], "plain_ms": s["plain_ms"],
                         "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],

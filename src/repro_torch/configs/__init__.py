@@ -1,8 +1,9 @@
 """Architecture registry: counterpart of ``repro.configs``.
 
 ``get(name)`` returns the full published Config; ``get_smoke(name)`` a
-reduced same-family config for CPU tests.  Only ``zamba2-2.7b`` is ported;
-the other architectures raise with the ``ROADMAP.md`` item that ports them.
+reduced same-family config for CPU tests.  The dense, ssm and hybrid
+architectures are ported; the moe, vlm and encdec ones raise with the
+``ROADMAP.md`` item that ports them.
 """
 from __future__ import annotations
 
@@ -25,20 +26,23 @@ ARCHS: List[str] = [
     "whisper-large-v3",
 ]
 
-_MODULES = {"zamba2-2.7b": "zamba2_2p7b"}
+_MODULES = {
+    "granite-8b": "granite_8b",
+    "qwen3-4b": "qwen3_4b",
+    "smollm-360m": "smollm_360m",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "zamba2-2.7b": "zamba2_2p7b",
+    "mamba2-2.7b": "mamba2_2p7b",
+}
 
 # Not ported yet: the LM-substrate item of ROADMAP.md §1 that ports each
 # family, and each architecture's family.
 FAMILY_ITEMS = {
-    "dense": "LM item 1 (dense family)",
-    "ssm": "LM item 2 (ssm family)",
     "moe": "LM item 3 (moe family)",
     "vlm": "LM item 4 (vlm family)",
     "encdec": "LM item 5 (encdec family)",
 }
 PENDING = {
-    "granite-8b": "dense", "qwen3-4b": "dense", "smollm-360m": "dense",
-    "deepseek-coder-33b": "dense", "mamba2-2.7b": "ssm",
     "qwen3-moe-30b-a3b": "moe", "arctic-480b": "moe",
     "qwen2-vl-72b": "vlm", "whisper-large-v3": "encdec",
 }

@@ -7,6 +7,10 @@ builds the port's :class:`~repro_torch.core.peps.PEPS`; ``peps_to_numpy``
 goes the other way.  ``lm_params_from_numpy`` / ``lm_params_to_numpy`` and
 ``cache_from_numpy`` / ``cache_to_numpy`` do the same for an LM parameter
 tree and a decode cache: nested dicts in the reference's keys and shapes.
+They walk whatever keys the tree holds, so one pair serves every ported
+family: the dense tree (``layers``) and its ``k``/``v`` cache, the ssm tree
+(``ssm_ln``, ``ssm``) and its ``ssm_h``/``ssm_conv`` cache, and the hybrid
+tree and cache, which hold both kinds.
 """
 from __future__ import annotations
 
@@ -70,8 +74,8 @@ def lm_params_to_numpy(tree) -> Dict[str, Any]:
 
 
 def cache_from_numpy(cache, *, device=None) -> Dict[str, Any]:
-    """Port decode cache from the reference's: each array keeps its dtype
-    and ``index`` becomes a Python int."""
+    """Port decode cache from the reference's, for any family's keys: each
+    array keeps its dtype and ``index`` becomes a Python int."""
     device = resolve_device(device)
     return {k: int(np.asarray(v)) if k == "index" else _tensor(v, None, device)
             for k, v in cache.items()}

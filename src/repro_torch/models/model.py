@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.models.model`` for serving on one card: no mesh, no
 shardings and no ``train_step`` (LM training is a later slice of the port,
-``ROADMAP.md`` §1).
+``ROADMAP.md`` §1).  The bundle is the same for every ported family (dense,
+ssm, hybrid); ``transformer`` picks the family's stack, cache and decode.
 """
 from __future__ import annotations
 

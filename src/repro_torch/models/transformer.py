@@ -1,16 +1,18 @@
-"""Decoder stacks: the hybrid (Zamba2) family, full-sequence, prefill and
-decode.
+"""Decoder stacks of the dense, ssm (Mamba2) and hybrid (Zamba2) families:
+full-sequence, prefill and decode.
 
 Counterpart of ``repro.models.transformer``.  Layer parameters stay stacked
 on their leading axis; where the reference scans, the port loops in
-Python.  The hybrid stack runs groups of Mamba2 blocks, each group closed
-by one attention + SwiGLU block whose weights every group shares.  The
-dense, moe, ssm and encdec families are not ported yet and raise.
+Python.  The dense stack runs one attention + SwiGLU block per layer, the
+ssm stack one Mamba2 block per layer, and the hybrid stack groups of
+Mamba2 blocks, each group closed by one attention + SwiGLU block whose
+weights every group shares.  The moe, vlm and encdec families are not
+ported yet and raise.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, Iterator, NamedTuple, Tuple
 
 import torch
 
@@ -21,8 +23,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import Config, P_, rms_norm, swiglu, take
 
 
-def _only_hybrid(cfg: Config, what: str) -> None:
-    if cfg.family != "hybrid":
+def _check_family(cfg: Config, what: str) -> None:
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{what} for the {cfg.family} family is not ported to repro_torch "
             f"yet: ROADMAP.md §1, {FAMILY_ITEMS[cfg.family]}")
@@ -39,7 +41,8 @@ def mlp_specs(cfg: Config, n_layers: int) -> Dict[str, P_]:
 
 
 def block_specs(cfg: Config, n_layers: int) -> Dict[str, object]:
-    """An attention + SwiGLU block (the hybrid family's shared block)."""
+    """Attention + SwiGLU blocks: the dense family's layers, the hybrid
+    family's shared block."""
     L = (n_layers,)
     return {
         "ln1": P_(L + (cfg.d_model,), init="ones"),
@@ -50,18 +53,24 @@ def block_specs(cfg: Config, n_layers: int) -> Dict[str, object]:
 
 
 def lm_specs(cfg: Config) -> Dict[str, object]:
-    _only_hybrid(cfg, "lm_specs")
-    n_groups = cfg.n_layers // cfg.hybrid_group
-    per = cfg.hybrid_group - 1           # mamba blocks per group
-    return {
+    _check_family(cfg, "lm_specs")
+    specs: Dict[str, object] = {
         "embed": P_((cfg.vocab, cfg.d_model)),
         "final_norm": P_((cfg.d_model,), init="ones"),
         "head": P_((cfg.d_model, cfg.vocab)),
-        "ssm_ln": P_((n_groups, per, cfg.d_model), init="ones"),
-        "ssm": {k: P_((n_groups,) + s.shape, init=s.init)
-                for k, s in ssm_mod.ssm_specs(cfg, per).items()},
-        "shared": block_specs(_dense(cfg), 1),   # one shared attn+mlp block
     }
+    if cfg.family == "ssm":
+        specs["ssm_ln"] = P_((cfg.n_layers, cfg.d_model), init="ones")
+        specs["ssm"] = ssm_mod.ssm_specs(cfg, cfg.n_layers)
+    elif cfg.family == "hybrid":
+        n_groups, per = _groups(cfg)
+        specs["ssm_ln"] = P_((n_groups, per, cfg.d_model), init="ones")
+        specs["ssm"] = {k: P_((n_groups,) + s.shape, init=s.init)
+                        for k, s in ssm_mod.ssm_specs(cfg, per).items()}
+        specs["shared"] = block_specs(_dense(cfg), 1)   # one shared block
+    else:
+        specs["layers"] = block_specs(cfg, cfg.n_layers)
+    return specs
 
 
 def _dense(cfg: Config) -> Config:
@@ -72,26 +81,70 @@ def _dense(cfg: Config) -> Config:
 # Forward passes
 # ---------------------------------------------------------------------------
 
-def _dense_block(x, lp, cfg: Config, positions):
-    h = x + att.attn_apply(rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions)
-    z = rms_norm(h, lp["ln2"])
-    return h + swiglu(z, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
-
-
 def _groups(cfg: Config) -> Tuple[int, int]:
     return cfg.n_layers // cfg.hybrid_group, cfg.hybrid_group - 1
 
 
-def _hybrid_forward(x, params, cfg: Config, positions):
-    """Groups of Mamba2 blocks, each closed by the shared attention block."""
-    shared = take(params["shared"], 0)
-    dense_cfg = _dense(cfg)
-    n_groups, per = _groups(cfg)
-    for g in range(n_groups):
-        for i in range(per):
-            x = x + ssm_mod.ssm_apply(rms_norm(x, params["ssm_ln"][g, i]),
-                                      take(params["ssm"], (g, i)), cfg)
-        x = _dense_block(x, shared, dense_cfg, positions)
+def _layers(params, cfg: Config) -> Iterator[tuple]:
+    """The stack in order, as (kind, idx, layer params, layer config).
+
+    ``kind`` "ssm": a Mamba2 block whose ``ssm_ln``/``ssm`` parameters and
+    cache slots sit at ``idx`` (a layer, or a (group, layer) pair).
+    ``kind`` "attn": an attention + SwiGLU block whose ``k``/``v`` cache
+    slot is ``idx``.  Dense: one attention block per layer; ssm: one Mamba2
+    block per layer; hybrid: groups of Mamba2 blocks, each closed by the
+    attention block whose weights every group shares."""
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            yield "attn", i, take(params["layers"], i), cfg
+    elif cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            yield "ssm", i, _ssm_layer(params, i), cfg
+    else:
+        shared, dense_cfg = take(params["shared"], 0), _dense(cfg)
+        n_groups, per = _groups(cfg)
+        for g in range(n_groups):
+            for i in range(per):
+                yield "ssm", (g, i), _ssm_layer(params, (g, i)), cfg
+            yield "attn", g, shared, dense_cfg
+
+
+def _ssm_layer(params, idx):
+    return {"ln": params["ssm_ln"][idx], "ssm": take(params["ssm"], idx)}
+
+
+def _attn_block(x, lp, cfg: Config, positions, cache=None, idx=None):
+    """An attention + SwiGLU block over the sequence; with a ``cache``, its
+    K and V go into the first positions of ``k``/``v`` at ``idx``."""
+    a_out, (k, v) = att.attn_prefill(rms_norm(x, lp["ln1"]), lp["attn"], cfg,
+                                     positions)
+    if cache is not None:
+        cache["k"][idx, :, :k.shape[1]] = k
+        cache["v"][idx, :, :v.shape[1]] = v
+    h = x + a_out
+    z = rms_norm(h, lp["ln2"])
+    return h + swiglu(z, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+
+
+def _mamba_block(x, lp, cfg: Config, cache=None, idx=None):
+    """A Mamba2 block over the sequence, with its residual; with a
+    ``cache``, its final SSD state and conv tail go into it at ``idx``."""
+    res = ssm_mod.ssm_apply(rms_norm(x, lp["ln"]), lp["ssm"], cfg,
+                            return_state=cache is not None)
+    if cache is None:
+        return x + res
+    out, (h_f, conv) = res
+    cache["ssm_h"][idx] = h_f
+    cache["ssm_conv"][idx] = conv
+    return x + out
+
+
+def _run_stack(x, params, cfg: Config, positions, cache=None):
+    for kind, idx, lp, lcfg in _layers(params, cfg):
+        if kind == "attn":
+            x = _attn_block(x, lp, lcfg, positions, cache, idx)
+        else:
+            x = _mamba_block(x, lp, lcfg, cache, idx)
     return x
 
 
@@ -109,12 +162,12 @@ def _logits(x, params):
 
 def forward(params, cfg: Config, tokens, positions=None) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V)."""
-    _only_hybrid(cfg, "forward")
+    _check_family(cfg, "forward")
     x = _embed(params, cfg, tokens)
     b, s = x.shape[:2]
     if positions is None:
         positions = default_positions(cfg, b, s, x.device)
-    return _logits(_hybrid_forward(x, params, cfg, positions), params)
+    return _logits(_run_stack(x, params, cfg, positions), params)
 
 
 # ---------------------------------------------------------------------------
@@ -129,20 +182,25 @@ class CacheSpec(NamedTuple):
 def init_cache_specs(cfg: Config, batch: int, max_seq: int,
                      dtype=torch.bfloat16) -> Dict[str, CacheSpec]:
     """Shapes and dtypes of the decode cache; ``index`` is a Python int in
-    the port's cache (a scalar int32 in the reference's)."""
-    _only_hybrid(cfg, "init_cache_specs")
-    n_groups, per = _groups(cfg)
+    the port's cache (a scalar int32 in the reference's).  Dense: ``k`` and
+    ``v`` per layer.  ssm: each Mamba2 layer's f32 SSD state ``ssm_h`` and
+    conv tail ``ssm_conv``.  Hybrid: both, Mamba2 layers on (group, layer)
+    and ``k``/``v`` per group."""
+    _check_family(cfg, "init_cache_specs")
     kv, dh = cfg.n_kv_heads, cfg.d_head
-    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
-    return {
-        "ssm_h": CacheSpec((n_groups, per, batch, cfg.ssm_heads, cfg.ssm_state,
-                            cfg.ssm_head_dim), torch.float32),
-        "ssm_conv": CacheSpec((n_groups, per, batch, cfg.conv_width - 1,
-                               conv_dim), dtype),
-        "k": CacheSpec((n_groups, batch, max_seq, kv, dh), dtype),
-        "v": CacheSpec((n_groups, batch, max_seq, kv, dh), dtype),
-        "index": CacheSpec((), torch.int32),
-    }
+    lead = _groups(cfg) if cfg.family == "hybrid" else (cfg.n_layers,)
+    specs = {}
+    if cfg.family != "dense":
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        specs["ssm_h"] = CacheSpec(lead + (batch, cfg.ssm_heads, cfg.ssm_state,
+                                           cfg.ssm_head_dim), torch.float32)
+        specs["ssm_conv"] = CacheSpec(lead + (batch, cfg.conv_width - 1,
+                                              conv_dim), dtype)
+    if cfg.family != "ssm":
+        specs["k"] = CacheSpec(lead[:1] + (batch, max_seq, kv, dh), dtype)
+        specs["v"] = CacheSpec(lead[:1] + (batch, max_seq, kv, dh), dtype)
+    specs["index"] = CacheSpec((), torch.int32)
+    return specs
 
 
 def init_cache(cfg: Config, batch: int, max_seq: int, dtype=torch.bfloat16,
@@ -157,12 +215,24 @@ def init_cache(cfg: Config, batch: int, max_seq: int, dtype=torch.bfloat16,
 
 
 def _attn_block_decode(x, lp, cfg: Config, ck, cv, index, positions):
-    a_out, nk, nv = att.attn_decode(rms_norm(x, lp["ln1"]), lp["attn"], cfg,
-                                    ck, cv, index, positions)
+    """An attention + SwiGLU block on one token; writes its K and V into
+    ``ck``/``cv`` at ``index``, in place."""
+    a_out, _, _ = att.attn_decode(rms_norm(x, lp["ln1"]), lp["attn"], cfg,
+                                  ck, cv, index, positions)
     h = x + a_out
     z = rms_norm(h, lp["ln2"])
-    return h + swiglu(z, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"]), \
-        nk, nv
+    return h + swiglu(z, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+
+
+def _mamba_decode(x, lp, cfg: Config, cache, idx):
+    """A Mamba2 block on one token: updates its SSD state in
+    ``cache["ssm_h"]`` at ``idx`` in place and returns (output, new conv
+    tail)."""
+    out, (h_new, conv_new) = ssm_mod.ssm_decode(
+        rms_norm(x, lp["ln"]), lp["ssm"], cfg,
+        (cache["ssm_h"][idx], cache["ssm_conv"][idx]))
+    cache["ssm_h"][idx] = h_new
+    return x + out, conv_new
 
 
 def decode_step(params, cfg: Config, cache, token, positions=None):
@@ -172,38 +242,34 @@ def decode_step(params, cfg: Config, cache, token, positions=None):
     new arrays; copying them per token would move the whole cache); the
     returned dict holds the same tensors, the new ``ssm_conv`` and
     ``index + 1``."""
-    _only_hybrid(cfg, "decode_step")
+    _check_family(cfg, "decode_step")
     x = _embed(params, cfg, token)                      # (B, 1, D)
     index = int(cache["index"])
     if positions is None:
         positions = torch.full((token.shape[0], 1), index, dtype=torch.int32,
                                device=x.device)
-    shared = take(params["shared"], 0)
-    dense_cfg = _dense(cfg)
-    n_groups, per = _groups(cfg)
+    new = {"index": index + 1}
     convs = []
-    for g in range(n_groups):
-        for i in range(per):
-            out, (h_new, conv_new) = ssm_mod.ssm_decode(
-                rms_norm(x, params["ssm_ln"][g, i]), take(params["ssm"], (g, i)),
-                cfg, (cache["ssm_h"][g, i], cache["ssm_conv"][g, i]))
-            x = x + out
-            cache["ssm_h"][g, i] = h_new
-            convs.append(conv_new)
-        x, _, _ = _attn_block_decode(x, shared, dense_cfg, cache["k"][g],
-                                     cache["v"][g], index, positions)
-    conv = torch.stack(convs).reshape(n_groups, per, *convs[0].shape)
-    logits = _logits(x, params)[:, 0]
-    return logits, dict(cache, ssm_conv=conv, index=index + 1)
+    for kind, idx, lp, lcfg in _layers(params, cfg):
+        if kind == "attn":
+            x = _attn_block_decode(x, lp, lcfg, cache["k"][idx],
+                                   cache["v"][idx], index, positions)
+        else:
+            x, conv = _mamba_decode(x, lp, lcfg, cache, idx)
+            convs.append(conv)
+    if convs:
+        new["ssm_conv"] = torch.stack(convs).reshape(cache["ssm_conv"].shape)
+    return _logits(x, params)[:, 0], dict(cache, **new)
 
 
 def prefill(params, cfg: Config, tokens, max_seq: int, positions=None,
             cache_dtype=torch.bfloat16):
     """Prefill the decode cache from a full prompt: the full-sequence
     forward that also emits each Mamba2 layer's final SSD state and conv
-    tail and each shared-attention layer's K/V (padded to ``max_seq``).
-    Returns (last-position logits (B, V), cache)."""
-    _only_hybrid(cfg, "prefill")
+    tail and each attention layer's K/V (padded to ``max_seq``).  Returns
+    (last-position logits (B, V), cache); the cache's tensors are in
+    ``cache_dtype``, except ``ssm_h`` (f32)."""
+    _check_family(cfg, "prefill")
     b, s = tokens.shape
     if s > max_seq:
         raise ValueError(f"prefill: a {s}-token prompt does not fit a "
@@ -212,24 +278,6 @@ def prefill(params, cfg: Config, tokens, max_seq: int, positions=None,
     if positions is None:
         positions = default_positions(cfg, b, s, x.device)
     cache = init_cache(cfg, b, max_seq, cache_dtype, x.device)
-    shared = take(params["shared"], 0)
-    dense_cfg = _dense(cfg)
-    n_groups, per = _groups(cfg)
-    for g in range(n_groups):
-        for i in range(per):
-            out, (h_f, conv) = ssm_mod.ssm_apply(
-                rms_norm(x, params["ssm_ln"][g, i]),
-                take(params["ssm"], (g, i)), cfg, return_state=True)
-            x = x + out
-            cache["ssm_h"][g, i] = h_f
-            cache["ssm_conv"][g, i] = conv.to(cache_dtype)
-        a_out, (k, v) = att.attn_prefill(rms_norm(x, shared["ln1"]),
-                                         shared["attn"], dense_cfg, positions)
-        h2 = x + a_out
-        z = rms_norm(h2, shared["ln2"])
-        x = h2 + swiglu(z, shared["mlp"]["wg"], shared["mlp"]["wu"],
-                        shared["mlp"]["wd"])
-        cache["k"][g, :, :s] = k.to(cache_dtype)
-        cache["v"][g, :, :s] = v.to(cache_dtype)
+    x = _run_stack(x, params, cfg, positions, cache)
     cache["index"] = s
     return _logits(x[:, -1], params), cache

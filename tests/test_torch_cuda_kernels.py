@@ -273,6 +273,8 @@ def _qkv(seed, b, hq, hkv, s, sk, d, dtype, layout):
     (2, 32, 32, 512, 512, 80, True, "bshd"),   # Zamba2 heads, shorter S
     (1, 4, 2, 200, 200, 48, True, "bshd"),     # D = 48
     (1, 4, 2, 150, 150, 24, False, "bhsd"),    # D = 24, padded to 32
+    (1, 32, 8, 256, 256, 128, True, "bshd"),   # qwen3-4b heads, GQA 4
+    (1, 15, 5, 200, 200, 64, True, "bshd"),    # smollm-360m heads, GQA 3
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -410,12 +412,14 @@ def test_ssd_auto_runs_the_bf16_mamba2_state_on_the_kernel(cuda):
 
 
 @pytest.mark.cuda
-def test_ssd_scan_bf16_lies_well_inside_the_bf16_operand_witness(cuda):
+@pytest.mark.parametrize("n", [64, 128])
+def test_ssd_scan_bf16_lies_well_inside_the_bf16_operand_witness(cuda, n):
     """The f32 contract, where it can be seen: the plain version with its
     three f32 operands rounded to bf16 (the witness) against the plain
     version.  The bf16 kernels keep those operands exact, so their gap
-    must stay under a quarter of the witness's."""
-    x, b, c, a = _ssd(47, 16, 1000, 64, 64, torch.bfloat16)
+    must stay under a quarter of the witness's.  N = 128 runs
+    ``ssd_chunk_kernel<4,8>``, mamba2-2.7b's state."""
+    x, b, c, a = _ssd(47, 16, 1000, 64, n, torch.bfloat16)
     want = KS.ssd_scan_plain(x, b, c, a, chunk=128).float()
     got = KS.ssd_scan(x, b, c, a, chunk=128).float()
     witness = KS.ssd_scan_split_plain(x, b, c, a, chunk=128, pieces=1).float()
@@ -452,3 +456,47 @@ def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda):
         KS.ssd_scan(x, b, c, a, chunk=100)
     with pytest.raises(TypeError, match="float32"):
         KS.ssd_scan(x, b, c, a.bfloat16(), chunk=64)
+
+
+# ---------------------------------------------------------------------------
+# The served stacks on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,flash,ssd", [("qwen3-4b", 2, 0),
+                                            ("smollm-360m", 2, 0),
+                                            ("mamba2-2.7b", 0, 2)])
+def test_smoke_prefill_on_the_card_runs_the_kernels(cuda, arch, flash, ssd):
+    """A smoke-size dense or ssm prefill in f32 launches one kernel per
+    attention or Mamba2 layer and matches the plain prefill; a decode step
+    after it launches none."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build
+    cfg = dataclasses.replace(configs.get_smoke(arch), ssm_chunk=16,
+                              param_dtype=torch.float32,
+                              act_dtype=torch.float32)
+    bundle = build(cfg)
+    params = bundle.init(0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=gen, device="cuda")
+    prev = dispatch.set_kernel_backend("kernel")
+    try:
+        KF.flash_attention.launches = KS.ssd_scan.launches = 0
+        with torch.no_grad():
+            got, cache = T.prefill(params, cfg, tokens, 41,
+                                   cache_dtype=torch.float32)
+            assert (KF.flash_attention.launches, KS.ssd_scan.launches) == \
+                (flash, ssd)
+            bundle.serve_step(params, cache, tokens[:, -1:])
+            assert (KF.flash_attention.launches, KS.ssd_scan.launches) == \
+                (flash, ssd)
+        dispatch.set_kernel_backend("dense")
+        with torch.no_grad():
+            want, _ = T.prefill(params, cfg, tokens, 41,
+                                cache_dtype=torch.float32)
+    finally:
+        dispatch.set_kernel_backend(prev)
+    assert _crel(got, want) <= 1e-4

@@ -190,12 +190,22 @@ def test_full_lm_specs_shapes_match_reference():
     assert 2.0e9 < n_params < 2.2e9
 
 
-def test_unported_architectures_name_their_roadmap_item():
-    for name in RC.ARCHS:
-        if name == ARCH:
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            C.get(name)
+@pytest.mark.parametrize("name", sorted(C.PENDING))
+def test_unported_architectures_name_their_roadmap_item(name):
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP.md §1, LM item \d"):
+        C.get(name)
+
+
+@pytest.mark.parametrize("name", ["granite-8b", "qwen3-4b", "smollm-360m",
+                                  "deepseek-coder-33b", "mamba2-2.7b"])
+def test_ported_architectures_resolve(name):
+    """The dense and ssm architectures resolve to their published config;
+    every architecture the reference serves is either ported or pending."""
+    assert C.get(name).name == name
+    assert name not in C.PENDING
+    assert sorted(RC.ARCHS) == sorted(C.ARCHS)
+    assert all((a in C.PENDING) != (a in C._MODULES) for a in RC.ARCHS)
 
 
 def test_decode_past_a_full_cache_raises():
