@@ -22,7 +22,15 @@ the gap of a witness that rounds its three f32 operands to bf16), drives the por
 main path — an 8x8 PEPS built by QR-update gates to bond D=6, its
 two-layer IBMPS norm and cached-environment TFI energy at chi=64, and four
 one-layer amplitudes — in complex64 through the kernels, then again through
-the dense torch path and at complex128, and compares.  Then it serves
+the dense torch path and at complex128, and compares.  Then it runs
+imaginary time evolution on 4x4 grids (``ite`` phase): the TFI model with
+the full update at D=3 against the QR update and the exact statevector
+ITE, and the J1-J2 model of paper Fig. 13 with the QR update at D=4 from
+the Neel state against its statevector ITE, each in complex128 and in
+complex64 through the Gram and tall-apply kernels, held to each other; each
+distinct operand layout that reaches the two kernels in those runs is held
+against the kernels' plain versions, and one Trotter step of each model is
+profiled.  Then it serves
 one model of each ported LM family at full width and depth (random bf16
 weights from ``SEED``), Zamba2-2.7B (hybrid), Qwen3-4B (dense, GQA 32/8 at
 head dimension 128) and Mamba2-2.7B (ssm, SSD state 128): a 4 x 2,048
@@ -37,6 +45,7 @@ outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -60,6 +69,51 @@ N_AMPLITUDES = 4
 # (relative to max(|lambda|, 1.0)) flattens the complex64 contraction of so
 # small a network to zero; at 0.3 the norm stays O(1).
 THETA_MAX = 0.3
+
+# Imaginary time evolution (ite phase): the full-update acceptance
+# configuration of tests/test_full_update.py and
+# benchmarks/bench_full_update.py (4x4 TFI, D=3, environments at chi=12
+# refreshed once a step, energy at BMPS(16) after 30 steps against the exact
+# statevector ITE of 60 steps), and the 4x4 J1-J2 model of paper Fig. 13
+# with the QR update at D=4, its energy at BMPS(16) with the randomized SVD,
+# from the Neel state (J1-J2 from |0...0>, a near-eigenstate that only the
+# 0.2 fields move, departs at a rate set by truncation noise, so two runs
+# in different precisions part and neither follows the statevector).
+ITE_GRID = 4
+ITE_TAU = 0.05
+ITE_STEPS = 30
+ITE_REF_STEPS = 60
+ITE_RANK = 3
+ITE_ENV_CHI = 12
+ITE_MEASURE_CHI = 16
+J1J2_RANK = 4
+J1J2_STEPS = 20
+# The full update's energy error against the statevector ITE, relative to
+# |E_ref| (the reference's acceptance bound).
+ITE_FU_TOL = 1e-3
+# complex64 ITE energies against the complex128 run of the same
+# configuration, and the complex64 kernel-mode run against the complex64
+# dense one, relative.  The reference's own J1-J2 complex64 run lies
+# 1.38e-4 from its complex128 one (tests/test_torch_ite.py run as a
+# script, on the CPU); on the H100 the port's read 5.7e-6 (kernel) and
+# 5.6e-5 (dense).
+TOL_ITE_C64 = 1e-3
+# J1-J2 PEPS energies against the statevector ITE of the same 20 steps,
+# relative: the QR update at D=4 truncates the frustrated model, 4.94e-2
+# in every precision on the H100 (-28.4018 against -29.8774).  A bound
+# that catches a run that leaves the evolution, not rounding.
+J1J2_SV_TOL = 1e-1
+# The dispatch sites whose kernel forms launch gram_complex and
+# tall_apply_complex on the ITE path: the Gram-QR of every reduced split,
+# QR update and rSVD, its projections, and the first column of every
+# two-layer environment sweep.
+ITE_SITES = ("gram", "tall_apply", "zipup_first_twolayer")
+# The reference's ALS regulariser, als_eps = 1e-12 (relative to the mean
+# diagonal of the normal matrices), is below complex64 rounding: the
+# reference's own complex64 full update gives NaN energies at 2x3 on the
+# CPU.  A complex64 run that fails at the default runs again at this value,
+# and the line says so.
+C64_ALS_EPS = 1e-6
 
 # Served at full width and depth (lm_serve phases): one model of each
 # ported family, hybrid, dense and ssm
@@ -751,6 +805,7 @@ def run_main_path(torch, dtype, mode, thetas, bits_list, amplitudes=True):
     from repro_torch.core.bmps import BMPS, amplitude, norm_squared
     from repro_torch.core.expectation import expectation
     from repro_torch.core.observable import tfi_hamiltonian
+    from repro_torch.core.svd_grad import eigh_reg
     from repro_torch.kernels import dispatch
 
     prev = dispatch.set_kernel_backend(mode)
@@ -758,6 +813,7 @@ def run_main_path(torch, dtype, mode, thetas, bits_list, amplitudes=True):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         out = {"dtype": str(dtype).replace("torch.", ""), "mode": mode}
+        widened = eigh_reg.widened
         t0 = time.perf_counter()
         state = build_state(torch, GRID, LAYERS, RANK, dtype, thetas)
         torch.cuda.synchronize()
@@ -778,6 +834,7 @@ def run_main_path(torch, dtype, mode, thetas, bits_list, amplitudes=True):
                    energy=complex(energy), amplitudes=amps,
                    gates_s=t1 - t0, norm_s=t2 - t1, energy_s=t3 - t2,
                    amplitudes_s=t4 - t3, total_s=t4 - t0,
+                   eigh_widened=eigh_reg.widened - widened,
                    max_memory_allocated=torch.cuda.max_memory_allocated())
         return out, state
     finally:
@@ -936,6 +993,308 @@ def device_profile(prof, wall: float, focus=()):
     if focus:
         out["focus"] = [row(*r) for r in rows if any(w in r[1] for w in focus)]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Imaginary time evolution (paper Section VI-D1)
+# ---------------------------------------------------------------------------
+
+def operand_layout(torch, x):
+    """What a kernel form's code path depends on in one argument: a
+    tensor's dtype, shape, strides and conj bit, else its value."""
+    if torch.is_tensor(x):
+        return (str(x.dtype).replace("torch.", ""), tuple(x.shape), x.stride(),
+                x.is_conj())
+    return repr(x)
+
+
+@contextlib.contextmanager
+def captured_site_calls(torch, sites):
+    """Record, for each dispatch site in ``sites``, the arguments of the
+    first call of every distinct operand layout that reaches its kernel
+    form, keyed by site and layout; the sites are restored on exit."""
+    from repro_torch.kernels import dispatch
+
+    calls = {name: {} for name in sites}
+    saved = {name: dispatch.site(name) for name in sites}
+
+    def recording(name, kernel_fn):
+        def kernel(*args, **kwargs):
+            key = tuple(operand_layout(torch, a) for a in args) + tuple(
+                (k, operand_layout(torch, v)) for k, v in sorted(kwargs.items()))
+            calls[name].setdefault(key, (args, kwargs))
+            return kernel_fn(*args, **kwargs)
+        return kernel
+
+    for name, s in saved.items():
+        dispatch.register_kernel(name, kernel=recording(name, s.kernel_fn),
+                                 dense=s.dense_fn, supported=s.supported,
+                                 auto=s.auto)
+    try:
+        yield calls
+    finally:
+        for name, s in saved.items():
+            dispatch.register_kernel(name, kernel=s.kernel_fn,
+                                     dense=s.dense_fn, supported=s.supported,
+                                     auto=s.auto)
+
+
+def hold_site_calls(torch, calls):
+    """Each recorded call's kernel form on the card (gram_complex and
+    tall_apply_complex launches) against the same form on CPU copies of its
+    arguments, where the wrappers run their plain versions.  The gap is
+    taken relative to the same form on the operands' magnitudes (|A| |B|
+    for a product, |A|^T |A| for a Gram), the scale of f32 rounding in a
+    product: held at TOL_F32.  Relative to the result itself it is printed
+    only, as the Gram-QR projections of rank-deficient operands cancel
+    (on the H100 a J1-J2 projection reads 1.33e-5 of the result, 8.9e-8
+    of |A| |B|).
+    Returns per site the number of distinct layouts, the largest gaps and
+    the layouts of the worst call."""
+    from repro_torch.kernels import dispatch
+
+    def cpu(x, magnitude=False):
+        if not torch.is_tensor(x):
+            return x
+        return x.abs().cpu() if magnitude else x.cpu()
+
+    out = {}
+    for name, seen in calls.items():
+        kernel_fn = dispatch.site(name).kernel_fn
+        errs, rels = [], []
+        for key, (args, kwargs) in seen.items():
+            got = kernel_fn(*args, **kwargs).cpu()
+            want = kernel_fn(*(cpu(a) for a in args), **kwargs)
+            scale = torch.linalg.norm(
+                kernel_fn(*(cpu(a, True) for a in args), **kwargs)).item()
+            gap = torch.linalg.norm(got - want).item()
+            errs.append((gap / (scale or 1.0), key))
+            rels.append(gap / (torch.linalg.norm(want).item() or 1.0))
+        worst, worst_key = max(
+            errs, key=lambda e: e[0] if math.isfinite(e[0]) else math.inf,
+            default=(0.0, None))
+        out[name] = {"layouts": len(seen), "max_err_of_magnitudes": worst,
+                     "max_rel_err": max(rels, default=0.0),
+                     "worst": repr(worst_key)}
+        check(len(seen) > 0, f"site {name} never reached its kernel form")
+        check(math.isfinite(worst) and worst <= TOL_F32,
+              f"{name} kernel form vs plain on an ITE operand: {out[name]}")
+    return out
+
+
+def ite_run_line(torch, label, obs, update, contract, steps, dtype, mode,
+                 e_ref, split_first=False, bits=None):
+    """One ``ite_run`` from |bits> (|0...0> by default) on the ITE grid,
+    timed, with the two PEPS kernels' launches counted from 0.
+    ``split_first`` runs one step, then the rest from its state (the
+    reference's acceptance test), so that the planner counters of the
+    second run are those after step 1.  In kernel mode the operands that
+    reach the kernels are recorded and then held against the plain
+    versions (``operands`` in the line)."""
+    from repro_torch.core.ite import ite_run
+    from repro_torch.core.peps import computational_basis
+    from repro_torch.core.svd_grad import eigh_reg
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.gram import gram_complex
+    from repro_torch.kernels.matvec import tall_apply_complex
+
+    if bits is None:
+        bits = [[0] * ITE_GRID] * ITE_GRID
+    capture = (captured_site_calls(torch, ITE_SITES) if mode == "kernel"
+               else contextlib.nullcontext())
+    prev = dispatch.set_kernel_backend(mode)
+    try:
+        with capture as calls:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            gram_complex.launches = tall_apply_complex.launches = 0
+            widened = eigh_reg.widened
+            t0 = time.perf_counter()
+            state = computational_basis(bits, dtype=dtype)
+            first = None
+            if split_first:
+                first = ite_run(state, obs, ITE_TAU, 1, update, contract)
+                state = first.state
+            rest = steps - bool(first)
+            res = ite_run(state, obs, ITE_TAU, rest, update, contract,
+                          measure_every=rest)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"gram_complex": gram_complex.launches,
+                        "tall_apply_complex": tall_apply_complex.launches}
+            widened = eigh_reg.widened - widened
+            peak = torch.cuda.max_memory_allocated()
+        # after the counts were read: these launches do not count
+        operands = hold_site_calls(torch, calls) if calls else None
+    finally:
+        dispatch.set_kernel_backend(prev)
+    st = res.planner_stats
+    hit = lambda k: st[f"{k}_hits"] / max(st[f"{k}_hits"] + st[f"{k}_misses"], 1)
+    fids = (first.fidelities if first else []) + (res.fidelities or [])
+    nan = any(math.isnan(f) for f in fids)
+    energy = res.energies[-1]
+    line = {"phase": "ite", "run": label,
+            "dtype": str(dtype).replace("torch.", ""), "mode": mode,
+            "update": {k: v for k, v in vars(update).items()
+                       if isinstance(v, (int, float, bool))},
+            "steps": steps, "wall_s": wall, "s_per_step": wall / steps,
+            "energy": energy, "e_ref": e_ref,
+            "rel_err_vs_ref": abs(energy - e_ref) / abs(e_ref),
+            "min_fidelity": math.nan if nan else min(fids, default=None),
+            "max_fidelity": math.nan if nan else max(fids, default=None),
+            "planner": {"path_hit_rate": hit("path"),
+                        "fused_hit_rate": hit("fused"),
+                        "path_misses": st["path_misses"],
+                        "fused_misses": st["fused_misses"],
+                        "after_step_1": split_first},
+            "launches": launches, "operands": operands,
+            "max_bond": res.state.max_bond(), "eigh_widened": widened,
+            "max_memory_allocated": peak}
+    emit(line)
+    return line, res.state
+
+
+def profile_trotter_step(torch, label, state, obs, update):
+    """Device time by kernel of one c64 kernel-mode Trotter step of
+    ``ite.trotter_step`` (the step ``ite_run`` takes) under torch.profiler,
+    after one unprofiled step whose environments it carries on, with the
+    kernels' counts."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.ite import trotter_moments, trotter_step
+    from repro_torch.core.keys import TorchKey
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.gram import gram_complex
+    from repro_torch.kernels.matvec import tall_apply_complex
+
+    moments = trotter_moments(obs, ITE_TAU)
+    prev = dispatch.set_kernel_backend("kernel")
+    try:
+        state, key, envs, since = trotter_step(state, moments, update,
+                                               TorchKey(SEED))
+        torch.cuda.synchronize()
+        gram_complex.launches = tall_apply_complex.launches = 0
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trotter_step(state, moments, update, key, envs, since)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        dispatch.set_kernel_backend(prev)
+    emit({"phase": "ite_profile", "what": label,
+          "launches_per_step": {
+              "gram_complex": gram_complex.launches,
+              "tall_apply_complex": tall_apply_complex.launches},
+          **device_profile(prof, wall, focus=("gram_tile", "gram_reduce",
+                                              "tall_apply_kernel"))})
+
+
+def phase_ite(torch, np):
+    """Trotterized ITE on 4x4 grids, the repository's own configurations:
+    the full-update acceptance run (TFI, tests/test_full_update.py and
+    benchmarks/bench_full_update.py) against the QR update and the exact
+    statevector ITE, and the J1-J2 model of paper Fig. 13 with the QR
+    update from the Neel state against its statevector ITE.  The complex64
+    runs go through the Gram and tall-apply kernels (forced ``kernel``
+    mode: at these sizes ``auto`` keeps every Gram dense) and are held to
+    the complex128 runs of the same configuration, and J1-J2's to its
+    complex64 dense run.  Returns the kernels' launches over the c64
+    kernel-mode runs."""
+    import dataclasses
+    from repro_torch.core.bmps import BMPS
+    from repro_torch.core.einsumsvd import RandomizedSVD
+    from repro_torch.core.ite import ite_statevector
+    from repro_torch.core.observable import j1j2_hamiltonian, tfi_hamiltonian
+    from repro_torch.core.peps import FullUpdate, QRUpdate
+
+    t_phase = time.perf_counter()
+    tfi = tfi_hamiltonian(ITE_GRID, ITE_GRID, jz=-1.0, hx=-3.5)
+    t0 = time.perf_counter()
+    _, e_ref = ite_statevector(ITE_GRID, ITE_GRID, tfi, ITE_TAU,
+                               ITE_REF_STEPS)
+    emit({"phase": "ite", "run": "statevector", "model": "tfi",
+          "steps": ITE_REF_STEPS, "energy": e_ref,
+          "wall_s": time.perf_counter() - t0})
+    measure = BMPS(ITE_MEASURE_CHI)
+    fu = FullUpdate(rank=ITE_RANK, chi=ITE_ENV_CHI, env_refresh_every=40)
+    qr, _ = ite_run_line(torch, "tfi_qr", tfi, QRUpdate(rank=ITE_RANK),
+                         measure, ITE_STEPS, torch.complex128, "dense", e_ref)
+    fu128, _ = ite_run_line(torch, "tfi_fu", tfi, fu, measure, ITE_STEPS,
+                            torch.complex128, "dense", e_ref, split_first=True)
+    # complex64 with the reference's defaults first: its ALS regulariser
+    # als_eps = 1e-12 lies far below complex64 rounding
+    try:
+        fu64, state64 = ite_run_line(torch, "tfi_fu_defaults", tfi, fu,
+                                     measure, ITE_STEPS, torch.complex64,
+                                     "kernel", e_ref, split_first=True)
+        held_fu = fu if math.isfinite(fu64["energy"]) else None
+    except torch.linalg.LinAlgError as e:
+        emit({"phase": "ite", "run": "tfi_fu_defaults", "dtype": "complex64",
+              "als_eps": fu.als_eps, "error": str(e)[:300]})
+        held_fu = None
+    if held_fu is None:
+        held_fu = dataclasses.replace(fu, als_eps=C64_ALS_EPS)
+        fu64, state64 = ite_run_line(torch, "tfi_fu_als_eps", tfi, held_fu,
+                                     measure, ITE_STEPS, torch.complex64,
+                                     "kernel", e_ref, split_first=True)
+
+    j1j2 = j1j2_hamiltonian(ITE_GRID, ITE_GRID)
+    neel = np.indices((ITE_GRID, ITE_GRID)).sum(axis=0) % 2
+    t0 = time.perf_counter()
+    _, e_j1j2 = ite_statevector(ITE_GRID, ITE_GRID, j1j2, ITE_TAU, J1J2_STEPS,
+                                bits=neel)
+    emit({"phase": "ite", "run": "statevector", "model": "j1j2",
+          "start": "neel", "terms": len(j1j2), "steps": J1J2_STEPS,
+          "energy": e_j1j2, "wall_s": time.perf_counter() - t0})
+    j_measure = BMPS(ITE_MEASURE_CHI, RandomizedSVD(niter=2, oversample=4))
+    j_update = QRUpdate(rank=J1J2_RANK)
+    j_runs = {}
+    for name, dtype, mode in (("c128", torch.complex128, "dense"),
+                              ("c64_dense", torch.complex64, "dense"),
+                              ("c64_kernel", torch.complex64, "kernel")):
+        j_runs[name], jstate = ite_run_line(
+            torch, "j1j2_qr", j1j2, j_update, j_measure, J1J2_STEPS, dtype,
+            mode, e_j1j2, bits=neel)
+    j64 = j_runs["c64_kernel"]
+
+    def gap(lo, hi):
+        return abs(lo["energy"] - hi["energy"]) / abs(hi["energy"])
+
+    errs = {"err_qr": abs(qr["energy"] - e_ref),
+            "err_fu": abs(fu128["energy"] - e_ref),
+            "tfi_fu_c64_vs_c128": gap(fu64, fu128),
+            "j1j2_c64_vs_c128": gap(j64, j_runs["c128"]),
+            "j1j2_c64_dense_vs_c128": gap(j_runs["c64_dense"], j_runs["c128"]),
+            "j1j2_c64_kernel_vs_dense": gap(j64, j_runs["c64_dense"]),
+            **{f"j1j2_{k}_vs_statevector": run["rel_err_vs_ref"]
+               for k, run in j_runs.items()}}
+    c64_runs = {"tfi_fu": fu64, "j1j2_qr": j64}
+    launches = {k: sum(run["launches"][k] for run in c64_runs.values())
+                for k in ("gram_complex", "tall_apply_complex")}
+    bounds = {"tfi_fu_c64_vs_c128": TOL_ITE_C64,
+              "j1j2_c64_vs_c128": TOL_ITE_C64,
+              "j1j2_c64_dense_vs_c128": TOL_ITE_C64,
+              "j1j2_c64_kernel_vs_dense": TOL_ITE_C64,
+              **{f"j1j2_{k}_vs_statevector": J1J2_SV_TOL for k in j_runs}}
+    emit({"phase": "ite", "errors": errs, "launches": launches,
+          "bounds": bounds, "seconds": time.perf_counter() - t_phase})
+    check(errs["err_fu"] < errs["err_qr"], f"full update not below QR: {errs}")
+    check(errs["err_fu"] < ITE_FU_TOL * abs(e_ref),
+          f"full update off the statevector ITE: {errs}")
+    for run in (fu128, fu64):
+        check(0.9 <= run["min_fidelity"] and run["max_fidelity"] <= 1 + 1e-9,
+              f"fidelity out of [0.9, 1]: {run}")
+    for k, bound in bounds.items():
+        check(errs[k] <= bound, f"{k} {errs[k]} > {bound}: {errs}")
+    for name, run in c64_runs.items():
+        for k, n in run["launches"].items():
+            check(n > 0, f"{k} never launched in the c64 {name} run")
+
+    profile_trotter_step(torch, "full update, 4x4 TFI, D=3, chi=12, c64",
+                         state64, tfi, held_fu)
+    profile_trotter_step(torch, "QR update, 4x4 J1-J2, D=4, c64", jstate,
+                         j1j2, j_update)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1204,20 +1563,6 @@ def decode_vs_prefill(torch, T, bundle, params, cfg, tokens, want,
 # A small input against the exact statevector
 # ---------------------------------------------------------------------------
 
-def statevector_energy(torch, psi, obs):
-    """<psi|H|psi>/<psi|psi> for a (2,)*n state tensor and an Observable."""
-    total = 0.0
-    for term in obs:
-        g = torch.as_tensor(term.gate_tensor(), dtype=psi.dtype,
-                            device=psi.device)
-        k = len(term.sites)
-        phi = torch.tensordot(g, psi, dims=(list(range(k, 2 * k)),
-                                            list(term.sites)))
-        phi = phi.movedim(tuple(range(k)), tuple(term.sites))
-        total = total + term.coeff * torch.vdot(psi.flatten(), phi.flatten())
-    return total / torch.vdot(psi.flatten(), psi.flatten())
-
-
 def phase_small_reference(torch, np):
     """3x3 at an untruncated chi: the c64 kernel path's norm, energy and
     largest amplitude against the exact c128 statevector of the same
@@ -1225,7 +1570,9 @@ def phase_small_reference(torch, np):
     from repro_torch.core.bmps import BMPS, amplitude, norm_squared
     from repro_torch.core.expectation import expectation
     from repro_torch.core.observable import tfi_hamiltonian
+    from repro_torch.core import statevector as sv
     from repro_torch.core.peps import to_statevector
+    from repro_torch.core.svd_grad import eigh_reg
     from repro_torch.kernels import dispatch
 
     rng = np.random.default_rng(SEED + 1)
@@ -1233,10 +1580,11 @@ def phase_small_reference(torch, np):
     obs = tfi_hamiltonian(3, 3)
     psi = to_statevector(build_state(torch, 3, 2, 4, torch.complex128, thetas))
     bits = np.array(np.unravel_index(int(psi.abs().argmax()), psi.shape))
-    want = {"norm": complex(torch.vdot(psi.flatten(), psi.flatten())),
-            "energy": complex(statevector_energy(torch, psi, obs)),
+    want = {"norm": complex(sv.inner(psi, psi)),
+            "energy": complex(sv.expectation(psi, obs.as_tuples())),
             "amplitude": complex(psi[tuple(int(b) for b in bits)])}
     option = BMPS.randomized(32)
+    widened = eigh_reg.widened
     prev = dispatch.set_kernel_backend("kernel")
     try:
         state = build_state(torch, 3, 2, 4, torch.complex64, thetas)
@@ -1249,7 +1597,7 @@ def phase_small_reference(torch, np):
     emit({"phase": "small_reference",
           "port": {k: _as_pair(v) for k, v in got.items()},
           "statevector": {k: _as_pair(v) for k, v in want.items()},
-          "rel_err": errs})
+          "rel_err": errs, "eigh_widened": eigh_reg.widened - widened})
     check(max(errs.values()) <= TOL_SMALL, f"3x3 vs statevector: {errs}")
 
 
@@ -1301,7 +1649,8 @@ def main() -> int:
         phase_profile(torch, state)
         del state
         torch.cuda.empty_cache()
-        by_path = {"peps": dict(launches)}
+        by_path = {"peps": dict(launches), "ite": phase_ite(torch, np)}
+        torch.cuda.empty_cache()
         for arch in LM_ARCHS:
             by_path[arch] = phase_lm_serve(torch, np, arch)
             torch.cuda.empty_cache()

@@ -1,10 +1,13 @@
-"""Carry PEPS state, LM parameters and decode caches across packages as
-numpy arrays.
+"""Carry PEPS state, row environments, LM parameters and decode caches
+across packages as numpy arrays.
 
 ``peps_from_numpy`` takes the site tensors of a PEPS as nested lists of
 numpy arrays (for the JAX package's PEPS: ``np.asarray`` of each site) and
 builds the port's :class:`~repro_torch.core.peps.PEPS`; ``peps_to_numpy``
-goes the other way.  ``lm_params_from_numpy`` / ``lm_params_to_numpy`` and
+goes the other way.  ``envs_from_numpy`` / ``envs_to_numpy`` do the same
+for a ``(top, bottom)`` pair of cached row environments (lists of levels,
+each a list of ``(l, d_bra, d_ket, r)`` tensors), the input of the full
+update.  ``lm_params_from_numpy`` / ``lm_params_to_numpy`` and
 ``cache_from_numpy`` / ``cache_to_numpy`` do the same for an LM parameter
 tree and a decode cache: nested dicts in the reference's keys and shapes.
 They walk whatever keys the tree holds, so one pair serves every ported
@@ -37,6 +40,20 @@ def peps_to_numpy(state: PEPS) -> Tuple[List[List[np.ndarray]], float]:
     """(sites as nested lists of numpy arrays, log_scale as a float)."""
     sites = [[t.detach().cpu().numpy() for t in row] for row in state.sites]
     return sites, float(state.log_scale)
+
+
+def envs_from_numpy(envs, *, dtype=None, device=None):
+    """Port ``(top, bottom)`` row environments from nested lists of numpy
+    arrays; ``dtype=None`` keeps each array's dtype."""
+    device = resolve_device(device)
+    return tuple([[torch.tensor(np.asarray(t), dtype=dtype, device=device)
+                   for t in level] for level in side] for side in envs)
+
+
+def envs_to_numpy(envs):
+    """``(top, bottom)`` as nested lists of numpy arrays."""
+    return tuple([[t.detach().cpu().numpy() for t in level] for level in side]
+                 for side in envs)
 
 
 def _tensor(arr, dtype, device) -> torch.Tensor:

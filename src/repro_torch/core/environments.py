@@ -4,14 +4,17 @@ Counterpart of ``repro.core.environments``.  Two full sweeps (top-down and
 bottom-up) produce ``top[i]`` / ``bottom[i]`` for all ``i``; each local-term
 expectation then only costs a short strip contraction.  Environment MPS
 tensors are in two-layer boundary layout ``(l, d_bra, d_ket, r)``; bottom
-environments face upward.
+environments face upward.  :func:`strip_boundary` gives the full update its
+left/right neighborhood environments from the cached rows.
 """
 from __future__ import annotations
 
+import itertools
 from typing import List, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import planner
 from repro_torch.core.bmps import BMPS, _check_option
 from repro_torch.core.engines import get_engine
 from repro_torch.core.engines.zipup import trivial_twolayer_boundary
@@ -49,6 +52,74 @@ def top_environments(bra_rows, ket_rows, option: BMPS,
                                    option.chi, option.svd, keys[i])
         envs.append(svec)
     return envs
+
+
+# ---------------------------------------------------------------------------
+# Strip boundaries (the full update's left/right neighborhood environments)
+# ---------------------------------------------------------------------------
+#
+# A strip is [top_env; bra rows; ket rows; bottom_env], the object
+# ``expectation.strip_value`` contracts to a scalar.  Here only the columns
+# left (or right) of a cut are contracted, leaving the horizontal bonds at
+# the cut open.  The boundary tensor's axes are
+#
+#     (top_bond, bra_bond_0, ket_bond_0, ..., bra_bond_{n-1}, ket_bond_{n-1},
+#      bottom_bond)
+#
+# for an n-row strip.
+
+def _absorb_strip_column(v, top_t, bra_ts, ket_ts, bot_t, from_left: bool):
+    """Absorb one strip column into a boundary tensor ``v`` (the open bonds
+    at the current cut, facing the column); returns the boundary at the
+    next cut.  One planner path-cache entry per shape class."""
+    n = len(bra_ts)
+    fresh = itertools.count(1).__next__
+    v_labels = [fresh() for _ in range(2 * n + 2)]
+    args = [v, v_labels]
+    t_new = fresh()
+    up_bra, up_ket = fresh(), fresh()
+    top_lab = ([v_labels[0], up_bra, up_ket, t_new] if from_left else
+               [t_new, up_bra, up_ket, v_labels[0]])
+    args += [top_t, top_lab]
+    out = [t_new]
+    for r in range(n):
+        p = fresh()
+        d_bra, d_ket = fresh(), fresh()
+        n_bra, n_ket = fresh(), fresh()
+        if from_left:
+            args += [bra_ts[r].conj(), [p, up_bra, v_labels[1 + 2 * r], d_bra, n_bra]]
+            args += [ket_ts[r], [p, up_ket, v_labels[2 + 2 * r], d_ket, n_ket]]
+        else:
+            args += [bra_ts[r].conj(), [p, up_bra, n_bra, d_bra, v_labels[1 + 2 * r]]]
+            args += [ket_ts[r], [p, up_ket, n_ket, d_ket, v_labels[2 + 2 * r]]]
+        out += [n_bra, n_ket]
+        up_bra, up_ket = d_bra, d_ket
+    b_new = fresh()
+    bot_lab = ([v_labels[-1], up_bra, up_ket, b_new] if from_left else
+               [b_new, up_bra, up_ket, v_labels[-1]])
+    args += [bot_t, bot_lab]
+    out.append(b_new)
+    args.append(out)
+    return planner.int_einsum(*args)
+
+
+def strip_boundary(top_env, bottom_env, bra_rows, ket_rows, cut: int,
+                   from_left: bool) -> torch.Tensor:
+    """Boundary tensor of a strip at column ``cut``.
+
+    ``from_left=True`` contracts columns ``[0, cut)`` (open bonds face
+    right); ``from_left=False`` contracts columns ``[cut, ncol)`` (open
+    bonds face left).  Strips are at most two rows high, so the boundary is
+    exact (no truncation)."""
+    n = len(bra_rows)
+    t0 = top_env[0]
+    v = torch.ones((1,) * (2 * n + 2), dtype=t0.dtype, device=t0.device)
+    cols = range(cut) if from_left else range(len(top_env) - 1, cut - 1, -1)
+    for c in cols:
+        v = _absorb_strip_column(v, top_env[c], [row[c] for row in bra_rows],
+                                 [row[c] for row in ket_rows], bottom_env[c],
+                                 from_left)
+    return v
 
 
 def row_environments(state, option: BMPS, key=None) -> Tuple[List, List]:

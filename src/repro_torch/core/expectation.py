@@ -5,7 +5,9 @@ option, use_cache=True)`` evaluates ``<psi|H|psi> / <psi|psi>``:
 
 * with caching: two full environment sweeps, then one strip contraction
   per term;
-* without caching: each term pays its own partial two-layer contractions.
+* without caching: each term pays its own partial two-layer contractions;
+* :func:`expectation_trotter`: paper Eq. (6), one two-layer contraction of
+  ``<psi|`` against a Trotter-evolved copy of the ket.
 
 Two-site terms are split ``G = sum_k L_k (x) R_k`` (exact operator SVD,
 bond kappa <= 4), so any geometry within two adjacent rows reduces to one
@@ -19,14 +21,19 @@ import numpy as np
 import torch
 
 from repro_torch.core import planner
-from repro_torch.core.bmps import BMPS
+from repro_torch.core.bmps import BMPS, inner, norm_squared
 from repro_torch.core.environments import _flip_rows, row_environments, \
     top_environments, trivial_env
+from repro_torch.core.gates import trotter_gate
 from repro_torch.core.keys import key_or_default
 from repro_torch.core.observable import Observable
+from repro_torch.core.peps import QRUpdate, apply_operator
 
 #: Seed of the key :func:`expectation` uses when called with ``key=None``.
 DEFAULT_EXPECTATION_KEY_SEED = 5
+#: Seed of the key :func:`expectation_trotter` uses when called with
+#: ``key=None`` (the reference's value).
+DEFAULT_TROTTER_KEY_SEED = 21
 
 
 def split_two_site(gate_tensor: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -184,3 +191,23 @@ def expectation(state, obs: Observable, option: BMPS, use_cache: bool = True,
             norm = strip_value(top_env, bot_env, bra_strip, bra_strip)
         total = total + term.coeff * _term_value(state, term, top_env, bot_env)
     return total / norm
+
+
+def expectation_trotter(state, obs: Observable, option: BMPS, tau: float = 1e-3,
+                        update=None, key=None) -> torch.Tensor:
+    """Paper Eq. (6): <H> ~ (<psi|prod_j e^{tau H_j}|psi> - <psi|psi>) / tau.
+
+    One two-layer contraction instead of two, at the price of applying an
+    extra (bond-growing, truncated) Trotter step to a copy of the ket; an
+    O(tau) bias by construction."""
+    key = key_or_default(key, DEFAULT_TROTTER_KEY_SEED)
+    if update is None:
+        update = QRUpdate(rank=max(4, state.max_bond()))
+    phi = state
+    for term in obs:
+        key, sub = key.split(2)
+        g = trotter_gate(-term.coeff * term.matrix, tau)  # exp(+tau c H)
+        phi = apply_operator(phi, g, list(term.sites), update, key=sub)
+    num = inner(state, phi, option)
+    den = norm_squared(state, option)
+    return (num - den) / (tau * den)

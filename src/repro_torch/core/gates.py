@@ -1,7 +1,7 @@
 """Quantum gate library (the port's own copy of ``repro.core.gates``).
 
-Plain numpy constants, converted to torch tensors at the point of use, so
-the port imports nothing of the reference package.
+Plain numpy constants, converted to torch tensors at the point of use
+(:func:`as_tensor`), so the port imports nothing of the reference package.
 
 Conventions
 -----------
@@ -17,6 +17,7 @@ import math
 from functools import lru_cache
 
 import numpy as np
+import torch
 
 _C = np.complex128
 
@@ -106,6 +107,15 @@ def gate(name: str, *params: float) -> np.ndarray:
     if name in _PARAMETRIC:
         return _PARAMETRIC[name](*params)
     return GATES[name]
+
+
+def as_tensor(g, like: torch.Tensor) -> torch.Tensor:
+    """Gate ``g`` (a numpy array or a torch tensor) in ``like``'s dtype and
+    device.  A tensor is cast with ``.to``, so a gate built from angles that
+    require grad stays on the autograd graph."""
+    if isinstance(g, torch.Tensor):
+        return g.to(device=like.device, dtype=like.dtype)
+    return torch.as_tensor(np.asarray(g), dtype=like.dtype, device=like.device)
 
 
 def two_site_gate(mat4: np.ndarray) -> np.ndarray:

@@ -9,10 +9,11 @@ Two-site operator application:
 
 * ``DirectUpdate`` — contract the full theta and einsumsvd it (Eq. 4);
 * ``QRUpdate``     — Alg. 1: QR both sites first (Gram factorization of
-  Alg. 5, or LAPACK QR), einsumsvd the small Rs, re-absorb the Q factors.
+  Alg. 5, or LAPACK QR), einsumsvd the small Rs, re-absorb the Q factors;
+* ``FullUpdate``   — the environment-aware full update
+  (:mod:`repro_torch.core.full_update`).
 
-The full update waits for the ITE slice of the port: any other update
-option raises the reference's ``TypeError``.
+Any other update option raises the reference's ``TypeError``.
 """
 from __future__ import annotations
 
@@ -160,29 +161,67 @@ class QRUpdate:
     gram: bool = True
 
 
+@dataclasses.dataclass(frozen=True)
+class FullUpdate:
+    """Environment-aware full update (Lubasch et al., arXiv:1405.3259).
+
+    The bond truncation is optimized in the metric of the two-site
+    neighborhood environment, built from cached row environments and a
+    left/right strip contraction (:mod:`repro_torch.core.full_update`).
+
+    rank:       truncated bond dimension.
+    svd:        einsumsvd engine of the ALS seed split.
+    chi:        boundary bond dimension of the row environments.
+    env_svd:    einsumsvd engine of the environment sweeps.
+    als_iters:  number of ALS sweeps.
+    als_eps:    relative Tikhonov regularization of the ALS normal matrices.
+    positive:   hermitize and eigenvalue-clamp the bond environment.
+    env_refresh_every: in ``ite.ite_run``, refresh the cached row
+                environments every N gate applications; they are refreshed
+                regardless when a bond has grown since the cached sweep.
+    env_contract: contraction option of the environment sweeps, overriding
+                ``(chi, env_svd)`` when set.  Only a ``BMPS`` until the
+                column-sharded ``DistributedBMPS`` is ported (ROADMAP PEPS
+                item 9).
+    """
+    rank: int
+    svd: object = DirectSVD()
+    chi: int = 16
+    env_svd: object = DirectSVD()
+    als_iters: int = 6
+    als_eps: float = 1e-12
+    positive: bool = True
+    env_refresh_every: int = 1
+    env_contract: object = None
+
+    def __post_init__(self):
+        from repro_torch.core.bmps import BMPS
+        if self.env_contract is not None and \
+                not isinstance(self.env_contract, BMPS):
+            raise NotImplementedError(
+                f"env_contract={type(self.env_contract).__name__}: only a "
+                "BMPS is ported; the distributed environment sweeps wait "
+                "for ROADMAP PEPS item 9 (multi-device)")
+
+
 def check_update(update) -> None:
     """Validate a two-site update option (single source of the accepted set)."""
-    if not isinstance(update, (DirectUpdate, QRUpdate)):
+    if not isinstance(update, (DirectUpdate, QRUpdate, FullUpdate)):
         raise TypeError(
             f"unknown two-site update option {type(update).__name__!r}: "
-            "expected DirectUpdate or QRUpdate (the full update is not "
-            "ported yet)")
+            "expected DirectUpdate, QRUpdate, or FullUpdate")
 
 
 # ---------------------------------------------------------------------------
 # Operator application
 # ---------------------------------------------------------------------------
 
-def _as_tensor(g, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(g), dtype=like.dtype, device=like.device)
-
-
 def apply_single(state: PEPS, g, flat_site: int) -> PEPS:
     """One-site operator (Eq. 3) — contraction with the physical index."""
     i, j = state.coords(flat_site)
     t = state.sites[i][j]
     new = state.copy()
-    new.sites[i][j] = torch.einsum("pq,quldr->puldr", _as_tensor(g, t), t)
+    new.sites[i][j] = torch.einsum("pq,quldr->puldr", _gates.as_tensor(g, t), t)
     return new
 
 
@@ -212,7 +251,12 @@ def _two_site_horizontal(a, b, g, update, key):
 
 
 def _apply_two_site_adjacent(state: PEPS, g: torch.Tensor, s0, s1, update,
-                             key) -> PEPS:
+                             key, envs=None) -> PEPS:
+    if isinstance(update, FullUpdate):
+        # the neighborhood environment is orientation-specific, so the full
+        # update handles both orientations itself
+        from repro_torch.core import full_update as _fu
+        return _fu.full_update_bond(state, g, s0, s1, update, key, envs=envs)
     (i0, j0), (i1, j1) = s0, s1
     new = state.copy()
     if i0 == i1 and j1 == j0 + 1:                     # horizontal, left-right
@@ -255,13 +299,18 @@ def _adjacent(s0, s1) -> bool:
 
 
 def apply_operator(state: PEPS, g, flat_sites: Sequence[int],
-                   update: Optional[object] = None, key=None) -> PEPS:
+                   update: Optional[object] = None, key=None,
+                   envs=None) -> PEPS:
     """Apply a 1- or 2-site operator on arbitrary sites.
 
     Non-adjacent two-site operators are routed with SWAP chains (paper
     Section II-C1); each SWAP uses the same truncating update.  With
     ``key=None`` the key is seeded, as in the reference, by the XOR of 17
-    and the site indices."""
+    and the site indices.
+
+    ``envs`` (FullUpdate only): cached ``(top, bottom)`` row environments to
+    truncate against; omitted, they are recomputed from the current state
+    per bond.  Along a SWAP chain the same environments are reused."""
     if key is None:
         key = TorchKey(int(np.bitwise_xor.reduce(
             np.asarray([17, *flat_sites], dtype=np.uint32))))
@@ -273,21 +322,24 @@ def apply_operator(state: PEPS, g, flat_sites: Sequence[int],
         update = QRUpdate(rank=max(4, state.max_bond()))
     check_update(update)
     like = state.sites[0][0]
-    g = _as_tensor(g, like)
+    g = _gates.as_tensor(g, like)
 
     s0, s1 = state.coords(flat_sites[0]), state.coords(flat_sites[1])
     if _adjacent(s0, s1):
-        return _apply_two_site_adjacent(state, g, s0, s1, update, key)
+        return _apply_two_site_adjacent(state, g, s0, s1, update, key, envs)
 
     # SWAP-chain routing: walk s1 next to s0, apply, walk back.
     path = _swap_path(s0, s1)
-    swap = _as_tensor(_gates.SWAP, like)
+    swap = _gates.as_tensor(_gates.SWAP, like)
     keys = iter(key.split(2 * len(path) + 1))
     for a, b in zip(path[:-1], path[1:]):
-        state = _apply_two_site_adjacent(state, swap, a, b, update, next(keys))
-    state = _apply_two_site_adjacent(state, g, s0, path[-1], update, next(keys))
+        state = _apply_two_site_adjacent(state, swap, a, b, update, next(keys),
+                                         envs)
+    state = _apply_two_site_adjacent(state, g, s0, path[-1], update,
+                                     next(keys), envs)
     for a, b in zip(reversed(path[1:]), reversed(path[:-1])):
-        state = _apply_two_site_adjacent(state, swap, a, b, update, next(keys))
+        state = _apply_two_site_adjacent(state, swap, a, b, update, next(keys),
+                                         envs)
     return state
 
 

@@ -147,24 +147,26 @@ def search_path(inputs: Sequence[str], output: str,
         low = mask & -mask
         union[mask] = union[mask ^ low] | frozenset(inputs[low.bit_length() - 1])
 
-    def legs(mask: int) -> frozenset:
-        if mask & (mask - 1) == 0:       # a leaf keeps all its own indices
-            return frozenset(inputs[mask.bit_length() - 1])
-        return union[mask] & (out_set | union[full ^ mask])
+    # the open legs of each subset's contraction: a leaf keeps all its own
+    # indices, a larger subset those shared with the output or the rest
+    legs = [union[mask] & (out_set | union[full ^ mask])
+            for mask in range(1 << n)]
+    for i in range(n):
+        legs[1 << i] = frozenset(inputs[i])
 
     best: Dict[int, Tuple[int, tuple]] = {1 << i: (0, ()) for i in range(n)}
     for mask in sorted(range(1, full + 1), key=lambda m: bin(m).count("1")):
         if mask & (mask - 1) == 0:
             continue
         low = mask & -mask
-        legs_m = legs(mask)
+        legs_m = legs[mask]
         choice = None
         sub = (mask - 1) & mask
         while sub:
             if sub & low:
                 other = mask ^ sub
                 cost = (best[sub][0] + best[other][0]
-                        + _pair_cost(legs(sub), legs(other), legs_m, sizes))
+                        + _pair_cost(legs[sub], legs[other], legs_m, sizes))
                 if choice is None or cost < choice[0]:
                     choice = (cost, (sub, other))
             sub = (sub - 1) & mask

@@ -76,6 +76,11 @@ def registered_sites() -> tuple:
     return tuple(sorted(_SITES))
 
 
+def site(name: str) -> KernelSite:
+    """The registered site ``name``.  Unknown sites raise KeyError."""
+    return _SITES[name]
+
+
 def dispatch(name: str, *args, **kwargs):
     """Run site ``name`` on ``args``, kernel- or dense-routed.  Unknown
     sites raise KeyError."""

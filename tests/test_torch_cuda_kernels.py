@@ -500,3 +500,42 @@ def test_smoke_prefill_on_the_card_runs_the_kernels(cuda, arch, flash, ssd):
     finally:
         dispatch.set_kernel_backend(prev)
     assert _crel(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sites", [[0, 1], [4, 1]])
+def test_full_update_bond_in_kernel_mode_matches_dense(cuda, sites):
+    """One complex64 full-update bond of a 2x3 D=2 state on the same cached
+    environments: kernel mode (every Gram and tall-apply on the kernels)
+    against dense mode, as the statevector and the bond fidelity."""
+    from repro_torch.core import full_update as FU
+    from repro_torch.core import gates
+    from repro_torch.core.environments import row_environments
+    from repro_torch.core.keys import TorchKey
+    from repro_torch.core.peps import FullUpdate, apply_operator, \
+        random_peps, to_statevector
+    from repro_torch.kernels import dispatch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    state = random_peps(2, 3, 2, gen, dtype=torch.complex64, device=cuda)
+    update = FullUpdate(rank=2, chi=8, als_eps=1e-6)
+    envs = row_environments(state, FU.env_option(update), TorchKey(3))
+    g = gates.trotter_gate(gates.pauli_term("ZZ") - 0.5 * gates.pauli_term("XX"),
+                           0.2)
+    out = {}
+    for mode in ("kernel", "dense"):
+        prev = dispatch.set_kernel_backend(mode)
+        before = (KG.gram_complex.launches, KM.tall_apply_complex.launches)
+        try:
+            FU.drain_fidelities()
+            new = apply_operator(state, g, sites, update, key=TorchKey(4),
+                                 envs=envs)
+            out[mode] = (to_statevector(new), FU.drain_fidelities())
+        finally:
+            dispatch.set_kernel_backend(prev)
+        launched = (KG.gram_complex.launches - before[0],
+                    KM.tall_apply_complex.launches - before[1])
+        assert launched == ((2, 2) if mode == "kernel" else (0, 0))
+    (vk, (fk,)), (vd, (fd,)) = out["kernel"], out["dense"]
+    assert _crel(vk, vd) <= 1e-4
+    assert abs(fk - fd) <= 1e-5 and 0.9 <= fk <= 1.0 + 1e-6
