@@ -30,7 +30,14 @@ the Neel state against its statevector ITE, each in complex128 and in
 complex64 through the Gram and tall-apply kernels, held to each other; each
 distinct operand layout that reaches the two kernels in those runs is held
 against the kernels' plain versions, and one Trotter step of each model is
-profiled.  Then it serves
+profiled.  Then it runs the VQE of paper Fig. 14 (``vqe`` phase, 3x3 TFI,
+two ansatz layers): the complex128 energy gradient through the regularized
+factorization derivatives against central differences and the exact
+statevector gradient, complex64 energies through the two PEPS kernels and
+the complex64 gradient (dense: the kernels have no backward, and a forced
+kernel mode must refuse a differentiated operand) against complex128, the
+adam, SPSA and SLSQP optimizers, and one profiled value-and-grad step.  Then
+it serves
 one model of each ported LM family at full width and depth (random bf16
 weights from ``SEED``), Zamba2-2.7B (hybrid), Qwen3-4B (dense, GQA 32/8 at
 head dimension 128) and Mamba2-2.7B (ssm, SSD state 128): a 4 x 2,048
@@ -114,6 +121,42 @@ ITE_SITES = ("gram", "tall_apply", "zipup_first_twolayer")
 # CPU.  A complex64 run that fails at the default runs again at this value,
 # and the line says so.
 C64_ALS_EPS = 1e-6
+
+# VQE (paper Section VI-D2, Fig. 14): 3x3 TFI at jz = -1, hx = -3.5, two
+# layers of Ry on every qubit then CX on every bond (18 angles; the
+# configuration of benchmarks/bench_vqe.py and examples/vqe_tfi.py).  At
+# rank 4 the two CX layers are exact, and on the CPU chi = 8 gives the
+# statevector energy to 1e-14 at four angle draws (chi = 4 misses by
+# 2e-2), so one evaluation at (4, 8) is held both to central differences
+# and to the statevector.
+VQE_GRID = 3
+VQE_LAYERS = 2
+VQE_RANK = 4
+VQE_CHI = 8
+VQE_FD_STEP = 1e-5
+VQE_FD_RTOL = 1e-4       # AD vs central FD, relative (tests/test_vqe_grad.py)
+VQE_FD_COMPONENTS = 3
+VQE_SV_TOL = 1e-8        # exact budget: energy vs statevector
+# The gradient at the exact budget differs from the statevector's by the
+# regularizer itself: at the phase's angles a near-degenerate singular pair
+# turns the 1e-12 Lorentzian broadening into 9.004e-8 in the reference and
+# in the port alike (CPU, tests/test_torch_vqe.py run as a script).  Held
+# at about twice that; central differences hold it at VQE_FD_RTOL.
+VQE_SV_GRAD_TOL = 2e-7
+# The reference's own complex64 VQE against its complex128 run at this
+# setting (tests/test_torch_vqe.py run as a script, CPU, three angle draws
+# at each budget): energies up to 2.1e-5 relative, gradients up to 2.4e-4
+# of max|g| (at the phase's angles 9.3e-7 and 7.7e-6, 2.3e-5 and 4.1e-5).
+# Held at about four times the largest reading.
+VQE_C64_ENERGY_TOL = 1e-4
+VQE_C64_GRAD_TOL = 1e-3
+# The optimizers at the bench's optimizer_convergence budget.
+VQE_OPT_RANK = 2
+VQE_OPT_CHI = 4
+VQE_OPT_ENSEMBLE = 8
+VQE_OPT_STEPS = 5
+VQE_SLSQP_ITERS = 2
+VQE_SITES = ("gram", "tall_apply", "zipup_first_twolayer")
 
 # Served at full width and depth (lm_serve phases): one model of each
 # ported family, hybrid, dense and ssm
@@ -1560,6 +1603,247 @@ def decode_vs_prefill(torch, T, bundle, params, cfg, tokens, want,
 
 
 # ---------------------------------------------------------------------------
+# VQE: gradients through the regularized factorizations (paper Section VI-D2)
+# ---------------------------------------------------------------------------
+
+def vqe_kernel_energies(torch, np, obs, thetas, budgets):
+    """c64 energies in forced ``kernel`` mode under ``torch.no_grad()`` at
+    each ``(rank, chi)`` of ``budgets``, with the two PEPS kernels'
+    launches counted from 0; each distinct operand layout that reached
+    them is then held against the plain versions."""
+    from repro_torch.core.bmps import BMPS
+    from repro_torch.core.peps import QRUpdate
+    from repro_torch.core.vqe import vqe_energy_peps
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.gram import gram_complex
+    from repro_torch.kernels.matvec import tall_apply_complex
+
+    prev = dispatch.set_kernel_backend("kernel")
+    try:
+        with captured_site_calls(torch, VQE_SITES) as calls:
+            gram_complex.launches = tall_apply_complex.launches = 0
+            with torch.no_grad():
+                energies = [float(vqe_energy_peps(
+                    thetas, VQE_GRID, VQE_GRID, obs, QRUpdate(rank=rank),
+                    BMPS(chi), dtype=torch.complex64))
+                    for rank, chi in budgets]
+            launches = {"gram_complex": gram_complex.launches,
+                        "tall_apply_complex": tall_apply_complex.launches}
+        # after the counts were read: these launches do not count
+        operands = hold_site_calls(torch, calls)
+    finally:
+        dispatch.set_kernel_backend(prev)
+    return energies, launches, operands
+
+
+def phase_vqe(torch, np):
+    """VQE on the paper's Fig. 14 setting at full width: the c128
+    value-and-grad against central differences and the statevector
+    gradient, c64 energies through the kernels and the c64 gradient
+    (dense, as the kernels have no backward) against c128, the forced
+    kernel mode refusing a differentiated operand, the three optimizers
+    at the bench's budget, and one profiled value-and-grad step.
+    Returns the kernels' launches over the c64 kernel-mode energies and
+    the phase's headline numbers (repeated on the ``done`` line)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.bmps import BMPS
+    from repro_torch.core.observable import tfi_hamiltonian
+    from repro_torch.core.peps import QRUpdate
+    from repro_torch.core.svd_grad import eigh_reg
+    from repro_torch.core.vqe import (run_vqe, vqe_energy_and_grad,
+                                      vqe_energy_peps, vqe_energy_statevector)
+    from repro_torch.kernels import dispatch
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    widened = eigh_reg.widened
+    obs = tfi_hamiltonian(VQE_GRID, VQE_GRID, jz=-1.0, hx=-3.5)
+    n_params = VQE_LAYERS * VQE_GRID * VQE_GRID
+    rng = np.random.default_rng(SEED + 2)
+    thetas = rng.uniform(-np.pi, np.pi, n_params)
+    update, contract = QRUpdate(rank=VQE_RANK), BMPS(VQE_CHI)
+
+    def value_and_grad(dtype=torch.complex128, **kw):
+        e, g = vqe_energy_and_grad(thetas, VQE_GRID, VQE_GRID, obs,
+                                   kw.get("update", update),
+                                   kw.get("contract", contract), dtype=dtype)
+        return float(e), g.cpu().numpy()
+
+    # c128: the first call, then timed calls
+    t0 = time.perf_counter()
+    e128, g128 = value_and_grad()
+    first_s = time.perf_counter() - t0
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        value_and_grad()
+    torch.cuda.synchronize()
+    grad_s = (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        energy_only = float(vqe_energy_peps(thetas, VQE_GRID, VQE_GRID, obs,
+                                            update, contract))
+    torch.cuda.synchronize()
+    energy_s = time.perf_counter() - t0
+
+    # central differences on VQE_FD_COMPONENTS components
+    comps = [int(i) for i in rng.choice(n_params, VQE_FD_COMPONENTS,
+                                        replace=False)]
+    fd_errs = {}
+    for i in comps:
+        d = np.zeros(n_params)
+        d[i] = VQE_FD_STEP
+        with torch.no_grad():
+            hi, lo = (float(vqe_energy_peps(thetas + sgn * d, VQE_GRID,
+                                            VQE_GRID, obs, update, contract))
+                      for sgn in (1.0, -1.0))
+        fd = (hi - lo) / (2 * VQE_FD_STEP)
+        fd_errs[i] = abs(g128[i] - fd) / max(abs(fd), 1e-8)
+
+    # the statevector gradient through autograd
+    th = torch.tensor(thetas, dtype=torch.float64, device="cuda",
+                      requires_grad=True)
+    esv_t = vqe_energy_statevector(th, VQE_GRID, VQE_GRID, obs)
+    (gsv,) = torch.autograd.grad(esv_t, th)
+    esv, gsv = esv_t.item(), gsv.cpu().numpy()
+    sv_errs = {"energy": abs(e128 - esv),
+               "grad_max_abs": float(np.max(np.abs(g128 - gsv)))}
+
+    # complex64: energies through the kernels, the gradient dense
+    budgets = [(VQE_RANK, VQE_CHI), (VQE_OPT_RANK, VQE_OPT_CHI)]
+    with torch.no_grad():
+        e128_opt = float(vqe_energy_peps(thetas, VQE_GRID, VQE_GRID, obs,
+                                         QRUpdate(rank=VQE_OPT_RANK),
+                                         BMPS(VQE_OPT_CHI)))
+        dense64 = [float(vqe_energy_peps(
+            thetas, VQE_GRID, VQE_GRID, obs, QRUpdate(rank=r), BMPS(c),
+            dtype=torch.complex64)) for r, c in budgets]
+    kernel64, launches, operands = vqe_kernel_energies(torch, np, obs,
+                                                       thetas, budgets)
+    refs = [e128, e128_opt]
+    dispatch.reset_dispatch_stats()
+    t0 = time.perf_counter()
+    e64, g64 = value_and_grad(torch.complex64)
+    grad64_s = time.perf_counter() - t0
+    stats = dispatch.dispatch_stats()
+    grad_routing = {k: v for k, v in stats.items()
+                    if v and k.split("_")[0] in ("kernel", "dense")}
+    c64 = {"energy_kernel_vs_c128": [abs(k - r) / abs(r)
+                                     for k, r in zip(kernel64, refs)],
+           "energy_dense_vs_c128": [abs(d - r) / abs(r)
+                                    for d, r in zip(dense64, refs)],
+           "energy_kernel_vs_dense": [abs(k - d) / abs(d)
+                                      for k, d in zip(kernel64, dense64)],
+           "grad_vs_c128": float(np.max(np.abs(g64 - g128))
+                                 / np.max(np.abs(g128))),
+           "grad_energy_vs_c128": abs(e64 - e128) / abs(e128)}
+
+    # forced kernel mode refuses a differentiated operand
+    prev = dispatch.set_kernel_backend("kernel")
+    refused = None
+    try:
+        value_and_grad(torch.complex64)
+    except RuntimeError as e:
+        refused = str(e)[:200]
+    finally:
+        dispatch.set_kernel_backend(prev)
+
+    # the optimizers at the bench's budget
+    opts = {}
+    for name, kw, steps in (
+            ("adam", dict(method="adam", ensemble=VQE_OPT_ENSEMBLE),
+             VQE_OPT_STEPS),
+            ("spsa", dict(method="spsa", ensemble=VQE_OPT_ENSEMBLE),
+             VQE_OPT_STEPS),
+            ("slsqp", dict(method="SLSQP"), VQE_SLSQP_ITERS)):
+        t0 = time.perf_counter()
+        res = run_vqe(VQE_GRID, VQE_GRID, obs, VQE_LAYERS, VQE_OPT_RANK,
+                      contract_bond=VQE_OPT_CHI, maxiter=steps, seed=SEED,
+                      **kw)
+        wall = time.perf_counter() - t0
+        opts[name] = {"steps": steps, "wall_s": wall,
+                      "s_per_step": wall / steps, "n_evals": res.n_evals,
+                      "energy": res.energy, "history": res.history}
+
+    # one profiled value-and-grad step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        value_and_grad()
+        torch.cuda.synchronize()
+    prof_wall = time.perf_counter() - t0
+    profiled = device_profile(prof, prof_wall)
+    profiled["busy_share_of_unprofiled_step"] = profiled["device_s"] / grad_s
+
+    line = {"phase": "vqe", "model": "tfi 3x3, jz=-1, hx=-3.5",
+            "layers": VQE_LAYERS, "params": n_params,
+            "rank": VQE_RANK, "chi": VQE_CHI,
+            "c128": {"energy": e128, "energy_no_grad": energy_only,
+                     "first_value_and_grad_s": first_s,
+                     "s_per_value_and_grad": grad_s, "s_per_energy": energy_s,
+                     "fd_components": comps,
+                     "fd_rel_err": {str(k): v for k, v in fd_errs.items()},
+                     "statevector_energy": esv, "vs_statevector": sv_errs},
+            "c64": {"energies_kernel": kernel64, "energies_dense": dense64,
+                    "budgets": budgets, **c64,
+                    "s_per_value_and_grad": grad64_s,
+                    "grad_routing": grad_routing},
+            "launches": launches, "operands": operands,
+            "forced_kernel_with_grad": refused,
+            "optimizers": opts, "eigh_widened": eigh_reg.widened - widened,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    emit({"phase": "vqe_profile", "what": "value_and_grad, c128, 3x3 TFI, "
+          f"rank {VQE_RANK}, chi {VQE_CHI}", **profiled})
+
+    check(all(math.isfinite(x) for x in [e128, *g128, e64, *g64]),
+          f"non-finite VQE energy or gradient: {line}")
+    check(abs(energy_only - e128) <= 1e-12 * max(abs(e128), 1.0),
+          f"value-and-grad energy differs from the plain energy: {line}")
+    for i, err in fd_errs.items():
+        check(err <= VQE_FD_RTOL, f"AD vs FD, component {i}: {fd_errs}")
+    check(sv_errs["energy"] <= VQE_SV_TOL
+          and sv_errs["grad_max_abs"] <= VQE_SV_GRAD_TOL,
+          f"exact budget vs statevector: {sv_errs}")
+    for k in ("energy_kernel_vs_c128", "energy_dense_vs_c128",
+              "energy_kernel_vs_dense"):
+        check(max(c64[k]) <= VQE_C64_ENERGY_TOL, f"c64 {k}: {c64}")
+    check(c64["grad_energy_vs_c128"] <= VQE_C64_ENERGY_TOL
+          and c64["grad_vs_c128"] <= VQE_C64_GRAD_TOL,
+          f"c64 gradient vs c128: {c64}")
+    check(all(v == 0 for k, v in grad_routing.items()
+              if k.startswith("kernel_"))
+          and grad_routing.get("dense_gram_grad_calls", 0) > 0
+          and grad_routing.get("dense_tall_apply_grad_calls", 0) > 0,
+          f"c64 gradient did not route dense: {grad_routing}")
+    check(refused is not None and "no backward" in refused,
+          f"forced kernel mode took a differentiated operand: {refused}")
+    for k, n in launches.items():
+        check(n > 0, f"{k} never launched in the c64 kernel-mode energies")
+    for name, o in opts.items():
+        check(all(math.isfinite(e) for e in o["history"]),
+              f"{name}: non-finite energy: {o}")
+    check(opts["adam"]["history"][-1] < opts["adam"]["history"][0],
+          f"adam did not lower the energy: {opts['adam']}")
+    check(opts["slsqp"]["energy"] <= opts["slsqp"]["history"][0],
+          f"SLSQP ended above its start: {opts['slsqp']}")
+    summary = {"seconds": line["seconds"], "s_per_value_and_grad": grad_s,
+               "s_per_energy": energy_s, "vs_statevector": sv_errs,
+               "fd_rel_err_max": max(fd_errs.values()),
+               "c64_energy_max": max(max(c64[k]) for k in (
+                   "energy_kernel_vs_c128", "energy_dense_vs_c128",
+                   "energy_kernel_vs_dense")),
+               "c64_grad_vs_c128": c64["grad_vs_c128"],
+               "busy_share": profiled["busy_share_of_unprofiled_step"],
+               "optimizer_wall_s": {k: o["wall_s"] for k, o in opts.items()},
+               "max_memory_allocated": line["max_memory_allocated"]}
+    return launches, summary
+
+
+# ---------------------------------------------------------------------------
 # A small input against the exact statevector
 # ---------------------------------------------------------------------------
 
@@ -1633,6 +1917,14 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
           "no_spill_ptxas": no_spill})
 
+    phase_s = {"build": build_s}
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
     try:
         for _, label, count in NO_SPILL_KERNELS:
             found = {k: v for k, v in no_spill.items()
@@ -1641,18 +1933,22 @@ def main() -> int:
                 f.get("spill_stores") == 0 and f.get("spill_loads") == 0
                 for f in found.values()),
                 f"{label} spills or is missing from the build log: {found}")
-        summary = phase_kernels(torch)
-        phase_wrappers(torch)
-        summary.update(phase_lm_kernels(torch))
-        phase_small_reference(torch, np)
-        launches, state = phase_main_path(torch, np)
-        phase_profile(torch, state)
+        summary = timed("kernels", phase_kernels, torch)
+        timed("wrappers", phase_wrappers, torch)
+        summary.update(timed("lm_kernels", phase_lm_kernels, torch))
+        timed("small_reference", phase_small_reference, torch, np)
+        launches, state = timed("main_path", phase_main_path, torch, np)
+        timed("profile", phase_profile, torch, state)
         del state
         torch.cuda.empty_cache()
-        by_path = {"peps": dict(launches), "ite": phase_ite(torch, np)}
+        by_path = {"peps": dict(launches),
+                   "ite": timed("ite", phase_ite, torch, np)}
+        torch.cuda.empty_cache()
+        by_path["vqe"], vqe_summary = timed("vqe", phase_vqe, torch, np)
         torch.cuda.empty_cache()
         for arch in LM_ARCHS:
-            by_path[arch] = phase_lm_serve(torch, np, arch)
+            by_path[arch] = timed(f"lm_serve_{arch}", phase_lm_serve, torch,
+                                  np, arch)
             torch.cuda.empty_cache()
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
@@ -1686,7 +1982,8 @@ def main() -> int:
                         "ms": s["ms"], "plain_ms": s["plain_ms"],
                         "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
                         "library_ms": s["library_ms"]})
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": phase_s, "vqe": vqe_summary})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -134,6 +134,12 @@ def reshape_qr(a: torch.Tensor, n_small: int) -> Tuple[torch.Tensor, torch.Tenso
     big_shape = tuple(a.shape[: a.dim() - n_small])
     small_shape = tuple(a.shape[a.dim() - n_small:])
     nbig, nsmall = math.prod(big_shape), math.prod(small_shape)
+    if nbig < nsmall and torch.is_grad_enabled() and a.requires_grad:
+        # the reference's jnp.linalg.qr has no derivative here, and torch's
+        # gives NaN on the rank-deficient splits of a circuit state
+        raise NotImplementedError(
+            "reshape_qr: no derivative of a wide QR (big modes "
+            f"{nbig} < small modes {nsmall}); use the Gram-QR (gram=True)")
     q_mat, r_mat = torch.linalg.qr(a.reshape(nbig, nsmall), mode="reduced")
     k = q_mat.shape[1]
     if k != nsmall:

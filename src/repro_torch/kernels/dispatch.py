@@ -22,7 +22,16 @@ Per call, :func:`dispatch` picks an implementation:
    on CUDA".  The thresholds are the reference's and were never measured
    on the H100.
 
-Every decision ticks ``kernel_<site>_calls`` / ``dense_<site>_calls``.
+3. the kernels have no backward (neither have the reference's Pallas
+   kernels): a call that would reach a kernel while
+   ``torch.is_grad_enabled()`` and an operand ``requires_grad`` runs dense
+   under ``"auto"``, before the auto predicate is consulted, and raises a
+   ``RuntimeError`` naming the site under a forced ``"kernel"``.  The
+   check comes before the kernel wrapper, whose plain version on a CPU
+   tensor would keep the graph, so the CPU shows what the card does.
+
+Every decision ticks one of ``kernel_<site>_calls``, ``dense_<site>_calls``
+and ``dense_<site>_grad_calls`` (the differentiated calls of rule 3).
 :func:`backend_signature` captures the state that changes what a cached
 callable computes (modes, per-site overrides, compute dtype, device type);
 the planner folds it into its fused-cache keys.
@@ -69,6 +78,7 @@ def register_kernel(name: str, *, kernel: Callable, dense: Callable,
     _SITES[name] = site
     _COUNTERS.setdefault(f"kernel_{name}_calls", 0)
     _COUNTERS.setdefault(f"dense_{name}_calls", 0)
+    _COUNTERS.setdefault(f"dense_{name}_grad_calls", 0)
     return site
 
 
@@ -81,6 +91,24 @@ def site(name: str) -> KernelSite:
     return _SITES[name]
 
 
+def grad_route(name: str, forced: bool, *args, **kwargs) -> bool:
+    """Rule 3 for a call of ``name`` that would reach a kernel: True when
+    autograd would record it, so that it must run dense (ticking
+    ``dense_<name>_grad_calls``); raises when the kernel is ``forced``."""
+    if not torch.is_grad_enabled() or not any(
+            isinstance(x, torch.Tensor) and x.requires_grad
+            for x in (*args, *kwargs.values())):
+        return False
+    if forced:
+        raise RuntimeError(
+            f"{name}: an operand requires grad, and the port's kernels have "
+            f"no backward; set the kernel backend to 'auto' or 'dense' for a "
+            f"differentiated call")
+    counter = f"dense_{name}_grad_calls"
+    _COUNTERS[counter] = _COUNTERS.get(counter, 0) + 1
+    return True
+
+
 def dispatch(name: str, *args, **kwargs):
     """Run site ``name`` on ``args``, kernel- or dense-routed.  Unknown
     sites raise KeyError."""
@@ -88,6 +116,8 @@ def dispatch(name: str, *args, **kwargs):
     mode = _SITE_MODES.get(name, _STATE["mode"])
     use_kernel = False
     if mode != "dense" and site.supported(*args, **kwargs):
+        if grad_route(name, mode == "kernel", *args, **kwargs):
+            return site.dense_fn(*args, **kwargs)
         use_kernel = mode == "kernel" or site.auto(*args, **kwargs)
     if use_kernel:
         _COUNTERS[f"kernel_{name}_calls"] += 1

@@ -8,6 +8,12 @@ them: ``matmul``, ``gram``, ``attention`` and ``ssd``.
 ``gram``; the plain route is their plain versions.  A kernel wrapper given
 a CPU tensor runs its plain version too, and counts no launch.
 
+Neither kernel has a backward: when autograd would record the call (grad
+enabled, an operand that requires grad), ``use_kernel=None`` runs the plain
+version and ticks ``dense_ops_<op>_grad_calls`` in ``dispatch_stats()``,
+and ``use_kernel=True`` raises, before the kernel wrapper's CPU branch, as
+a dispatch site does (:func:`repro_torch.kernels.dispatch.grad_route`).
+
 ``attention`` and ``ssd`` are sites of :mod:`repro_torch.kernels.dispatch`.
 The kernel form is the hand-written CUDA kernel (its plain version on a CPU
 tensor), the dense form is the plain version.  Only float32 and bfloat16
@@ -32,6 +38,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor, use_kernel: bool = None,
            **kw) -> torch.Tensor:
     """C = A @ B with f32 accumulation (``compute="bfloat16"`` rounds the
     multiplicands)."""
+    if use_kernel is not False and dispatch.grad_route(
+            "ops_matmul", use_kernel is True, a, b):
+        use_kernel = False
     if use_kernel is None:
         use_kernel = a.device.type == "cuda"
     return (tiled_matmul if use_kernel else tiled_matmul_plain)(a, b, **kw)
@@ -39,6 +48,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor, use_kernel: bool = None,
 
 def gram(a: torch.Tensor, use_kernel: bool = None, **kw) -> torch.Tensor:
     """G = A^T A of real A, G = A^H A of complex64 A."""
+    if use_kernel is not False and dispatch.grad_route(
+            "ops_gram", use_kernel is True, a):
+        use_kernel = False
     if use_kernel is None:
         use_kernel = a.device.type == "cuda"
     if a.is_complex():

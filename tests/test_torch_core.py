@@ -171,6 +171,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    for name in ("optim/__init__.py", "optim/adamw.py", "core/vqe.py",
+                 "core/svd_grad.py"):
+        assert ROOT / "src" / "repro_torch" / name in files
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
            if mod in _FORBIDDEN]

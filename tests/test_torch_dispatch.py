@@ -233,3 +233,67 @@ def test_flipping_backend_is_a_new_fused_cache_key():
     assert delta["fused_misses"] > 0, "a backend flip must be a new cache key"
     assert delta["kernel_gram_calls"] > 0
     np.testing.assert_allclose(complex(v2), complex(v1), rtol=1e-4)
+
+
+# ------------------------------------------------- differentiated operands --
+
+def test_auto_routes_a_differentiated_operand_dense_and_counts_it():
+    """The kernels have no backward: under ``auto`` a differentiated c64
+    operand runs dense, before the site's auto predicate, and ticks its own
+    counter; the graph survives to the input."""
+    a = _randn(12, 96, 6, dtype=torch.complex64).requires_grad_(True)
+    dispatch.set_kernel_backend("auto")
+    dispatch.reset_dispatch_stats()
+    q, r = gram_qr(a, 1)
+    s = dispatch.dispatch_stats()
+    assert s["dense_gram_grad_calls"] == 1
+    assert s["dense_tall_apply_grad_calls"] == 1
+    assert s["kernel_gram_calls"] == s["dense_gram_calls"] == 0
+    (g,) = torch.autograd.grad(torch.einsum("ak,kc->ac", q, r).abs().sum(), a)
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+    # without grad, the same call is an ordinary routing decision
+    with torch.no_grad():
+        gram_qr(a, 1)
+    s = dispatch.dispatch_stats()
+    assert s["dense_gram_calls"] == 1 and s["dense_gram_grad_calls"] == 1
+
+
+def test_forced_kernel_raises_on_a_differentiated_operand():
+    a = _randn(13, 96, 6, dtype=torch.complex64).requires_grad_(True)
+    dispatch.set_kernel_backend("kernel")
+    with pytest.raises(RuntimeError, match="gram: .*no backward"):
+        gram_qr(a, 1)
+    with pytest.raises(RuntimeError, match="zipup_first_twolayer: .*no backward"):
+        ZB.first_column_twolayer(
+            _randn(14, 1, 1, 1, 2, 3, dtype=torch.complex64),
+            _randn(15, 2, 1, 1, 2, 3, dtype=torch.complex64),
+            _randn(16, 2, 1, 1, 2, 3, dtype=torch.complex64).requires_grad_())
+    # the same operand without grad reaches the kernel form (its plain
+    # version on the CPU); c128 never reaches a kernel, so it never raises
+    dispatch.reset_dispatch_stats()
+    with torch.no_grad():
+        gram_qr(a, 1)
+    assert dispatch.dispatch_stats()["kernel_gram_calls"] == 1
+    c = _randn(17, 96, 6, dtype=torch.complex128).requires_grad_(True)
+    gram_qr(c, 1)
+    assert dispatch.dispatch_stats()["dense_gram_calls"] == 1
+
+
+@pytest.mark.parametrize("op", ["matmul", "gram"])
+def test_ops_entry_points_refuse_kernels_for_differentiated_operands(op):
+    from repro_torch.kernels import ops
+    a = _randn(18, 40, 6).requires_grad_(True)
+    b = _randn(19, 6, 5)
+    args = (a, b) if op == "matmul" else (a,)
+    fn = getattr(ops, op)
+    with pytest.raises(RuntimeError, match=f"ops_{op}: .*no backward"):
+        fn(*args, use_kernel=True)
+    dispatch.reset_dispatch_stats()
+    out = fn(*args)
+    assert dispatch.dispatch_stats()[f"dense_ops_{op}_grad_calls"] == 1
+    (g,) = torch.autograd.grad(out.sum(), a)
+    assert torch.isfinite(g).all()
+    with torch.no_grad():
+        fn(*args, use_kernel=True)          # the plain version on the CPU
+    fn(*args, use_kernel=False)
+    assert dispatch.dispatch_stats()[f"dense_ops_{op}_grad_calls"] == 1

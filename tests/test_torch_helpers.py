@@ -26,8 +26,8 @@ _TORCH = {v: k for k, v in _JNP.items()}
 
 
 class JaxKey:
-    """Key object of the port's protocol (``split``/``sketch``) on top of a
-    ``jax.random`` key."""
+    """Key object of the port's protocol (``split``/``fold_in``/``sketch``/
+    ``uniform``/``rademacher``) on top of a ``jax.random`` key."""
 
     def __init__(self, key):
         self.key = jax.random.PRNGKey(key) if isinstance(key, int) else key
@@ -35,9 +35,20 @@ class JaxKey:
     def split(self, n):
         return [JaxKey(k) for k in jax.random.split(self.key, n)]
 
+    def fold_in(self, i):
+        return JaxKey(jax.random.fold_in(self.key, i))
+
     def sketch(self, shape, dtype, device):
         arr = _random_sketch(self.key, tuple(shape), _JNP[dtype])
         return torch.from_numpy(np.array(arr)).to(device)
+
+    def uniform(self, shape, lo, hi, dtype, device):
+        arr = jax.random.uniform(self.key, tuple(shape), _JNP[dtype], lo, hi)
+        return torch.from_numpy(np.array(arr)).to(device)
+
+    def rademacher(self, shape, dtype, device):
+        arr = jax.random.rademacher(self.key, tuple(shape), jnp.int32)
+        return torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)
 
 
 def to_torch(x, device=CPU):
