@@ -6,14 +6,19 @@
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the hand-written kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``,
 sm_90a; the tensor-core flash and SSD kernels, the Gram kernels, the
-tall-apply kernels and the tiled GEMM must build without register spills),
+tall-apply kernels, the tiled GEMM and the zip-up site kernels must build
+without register spills),
 holds each kernel against its plain PyTorch version (the tiled GEMM
 through ``ops.matmul``, also at a ragged K, a row-major multi-tile output
 and a misaligned view, bit for bit on repeat and one launch a call, and
 timed with the L2 cold as well as warm; the complex Gram also for exact
 Hermiticity and bit-for-bit repeats; the tall-apply and the SSD scan for
 bit-for-bit repeats, and the complex tall-apply on conj and strided views
-and at a depth K beyond the old shared-memory limit; the bf16 flash kernel
+and at a depth K beyond the old shared-memory limit; the zip-up site
+kernels, one launch and one device kernel a call, against their plain
+versions and einsum at the main and ragged shapes, on conj and strided
+views, real and complex, f32 and bf16 (t1's rounding on dyadic operands),
+bit for bit on repeat; the bf16 flash kernel
 also within a quarter of the gap of a witness that rounds P to bf16, which
 the f32 contract forbids, also at Qwen3-4B's and SmolLM-360M's GQA shapes,
 and on a probe whose output needs the third bf16 piece of P; the bf16 SSD
@@ -27,7 +32,7 @@ imaginary time evolution on 4x4 grids (``ite`` phase): the TFI model with
 the full update at D=3 against the QR update and the exact statevector
 ITE, and the J1-J2 model of paper Fig. 13 with the QR update at D=4 from
 the Neel state against its statevector ITE, each in complex128 and in
-complex64 through the Gram and tall-apply kernels, held to each other; each
+complex64 through the Gram, tall-apply and zip-up kernels, held to each other; each
 distinct operand layout that reaches the two kernels in those runs is held
 against the kernels' plain versions, and one Trotter step of each model is
 profiled.  Then it runs the VQE of paper Fig. 14 (``vqe`` phase, 3x3 TFI,
@@ -157,6 +162,10 @@ VQE_OPT_ENSEMBLE = 8
 VQE_OPT_STEPS = 5
 VQE_SLSQP_ITERS = 2
 VQE_SITES = ("gram", "tall_apply", "zipup_first_twolayer")
+# The kernels every c64 kernel-mode ITE and VQE run must launch: their
+# contractions are two-layer, so the one-layer site (zipup_pair) is counted
+# but may stay at 0.
+TWO_LAYER_KERNELS = ("gram_complex", "tall_apply_complex", "zipup_chain")
 
 # Served at full width and depth (lm_serve phases): one model of each
 # ported family, hybrid, dense and ssm
@@ -242,7 +251,7 @@ def rel(a, b) -> float:
 # tall-apply: <complex, bf16, conj B>, 4 complex and 2 real; the
 # chunk-parallel bf16 SSD kernel: <P tiles, N tiles>, P in 1, 2 or 4 and N
 # in 1, 2, 4 or 8 tiles of 16; the tiled GEMM: <A transposed, bf16>, and its
-# reduce.
+# reduce; the zip-up site kernels: <complex, bf16>.
 NO_SPILL_KERNELS = ((r"flash_mma_kernelILi(\d+)E", "flash_mma_kernel<{}>", 8),
                     (r"gram_tile_kernelILb(\d)ELb(\d)E",
                      "gram_tile_kernel<{},{}>", 4),
@@ -255,7 +264,11 @@ NO_SPILL_KERNELS = ((r"flash_mma_kernelILi(\d+)E", "flash_mma_kernel<{}>", 8),
                     (r"tiled_matmul_kernelILb(\d)ELb(\d)E",
                      "tiled_matmul_kernel<{},{}>", 4),
                     (r"tiled_matmul_reduce_kernel()",
-                     "tiled_matmul_reduce_kernel", 1))
+                     "tiled_matmul_reduce_kernel", 1),
+                    (r"zipup_pair_kernelILb(\d)ELb(\d)E",
+                     "zipup_pair_kernel<{},{}>", 4),
+                    (r"zipup_chain_kernelILb(\d)ELb(\d)E",
+                     "zipup_chain_kernel<{},{}>", 4))
 # The kernels a bf16 ssd_scan and a bf16 flash_attention call launch (once).
 SSD_BF16_KERNEL = "ssd_chunk_kernel"
 FLASH_BF16_KERNEL = "flash_mma_kernel"
@@ -573,11 +586,82 @@ def phase_kernels(torch):
     return summary
 
 
+# The zip-up sites: (dispatch site, kernel of csrc/zipup_block.cu, plain
+# version's name, einsum, g of the main shape, its flops) at D = 6, chi =
+# 64 (the interior columns of the 8x8 path), then ragged (D, g): p = 2,
+# u = U = 2 in the pair merge.
+ZIPUP_SITES = (
+    # S0 (1,6,6) x O0 (6,1,6,6): (6 x 6) @ (6 x 36)
+    ("zipup_first_onelayer", "zipup_pair", "first_onelayer_plain",
+     "bfg,fchk->bchgk", 6, 8 * 6 * 6 * 36),
+    # S0 (1,6,6,36) x bra (2,6,1,6,6) x ket: (216 x 6) @ (6 x 72), then
+    # (1296 x 12) @ (12 x 36)
+    ("zipup_first_twolayer", "zipup_chain", "first_twolayer_plain",
+     "bfFg,pfchk,pFCHK->bcChHgkK", 36, 8 * (216 * 6 * 72 + 1296 * 12 * 36)),
+    # first-row D = 6 bra/ket sites (2,1,6,6,6): (216 x 2) @ (2 x 216)
+    ("pair_merge", "zipup_pair", "pair_merge_plain", "puldr,pULDR->lLdDrR",
+     0, 8 * 216 * 2 * 216),
+)
+ZIPUP_RAGGED = ((2, 1), (3, 7), (4, 36), (8, 128), (8, 1), (2, 128))
+
+
+def zipup_shapes(site, d, g, main=False):
+    """The operand shapes of a zip-up site at bond D and boundary bond g
+    (``main``: the main path's, whose pair merge has u = U = 1)."""
+    if site == "zipup_first_onelayer":
+        return [(1, d, g), (d, 1, d, d)]
+    if site == "zipup_first_twolayer":
+        return [(1, d, d, g), (2, d, 1, d, d), (2, d, 1, d, d)]
+    u = 1 if main else 2
+    return [(2, u, d, d, d), (2, u, d, d, d)]
+
+
+def t1_flip_tol(xs):
+    """The two-layer site with bf16 multiplicands on normal inputs against
+    its plain version: a t1 entry within a sum-order rounding of a bf16 tie
+    rounds the other way (2^-8 of that entry); four such flips of average
+    entries, ten times inside the witness that skips t1's rounding
+    (``tests/test_torch_zipup_block.py``).  On dyadic inputs, where t1 is
+    exact in f32, the kernel is held at TOL_F32."""
+    b, f, F, g = xs[0].shape
+    p, _, c, h, k = xs[1].shape
+    return max(TOL_F32, 2.0 ** -8 * (4.0 / (b * F * g * p * c * h * k)) ** 0.5)
+
+
+def profiled_kernels(torch, fn, calls):
+    """Device kernels of ``calls`` calls of ``fn`` under torch.profiler:
+    {name: (count, mean device ms)}."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA"):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        out[evt.key] = (evt.count, us / 1e3 / max(evt.count, 1))
+    return out
+
+
 def phase_wrappers(torch):
-    """``planar_matmul`` and the three zip-up sites in c64 at the 8x8 main
-    path's shapes.  The wrapper on the card is held against the same
-    function built from its kernel's plain version; each zip-up site in its
-    kernel form against its dense (einsum) form."""
+    """``planar_matmul`` and the three zip-up sites on the card.  The
+    wrapper is held against the same function built from its kernel's plain
+    version; each zip-up site's kernel form (one launch of
+    ``zipup_pair_kernel`` or ``zipup_chain_kernel``) against its plain
+    version and its dense einsum, at the main path's shapes and ragged ones,
+    on conj and strided views, real and complex, with f32 and bf16
+    multiplicands; at the main shapes also for one launch a call, a bit
+    for bit repeat, one device kernel in a profiled call, and its times.
+    Returns the one-layer and two-layer sites' lines for the kernels
+    line."""
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels import matvec as KM
     from repro_torch.kernels import zipup_block as Z
 
@@ -604,32 +688,129 @@ def phase_wrappers(torch):
                  8 * (m * k + k * n + m * n))
     emit(line)
 
-    # -- zip-up sites at D = 6, chi = 64 (interior columns of the 8x8 path)
-    sites = [
-        # S0 (1,6,6) x O0 (6,1,6,6): (6 x 6) @ (6 x 36)
-        ("zipup_first_onelayer", (crandn(1, 6, 6), crandn(6, 1, 6, 6)),
-         Z._first_onelayer_kernel, Z._first_onelayer_dense,
-         "bfg,fchk->bchgk", 8 * 6 * 6 * 36),
-        # S0 (1,6,6,36) x bra (2,6,1,6,6) x ket: (216 x 6) @ (6 x 72), then
-        # (1296 x 12) @ (12 x 36)
-        ("zipup_first_twolayer",
-         (crandn(1, 6, 6, 36), crandn(2, 6, 1, 6, 6), crandn(2, 6, 1, 6, 6)),
-         Z._first_twolayer_kernel, Z._first_twolayer_dense,
-         "bfFg,pfchk,pFCHK->bcChHgkK", 8 * (216 * 6 * 72 + 1296 * 12 * 36)),
-        # first-row D = 6 bra/ket sites (2,1,6,6,6): (216 x 2) @ (2 x 216)
-        ("pair_merge", (crandn(2, 1, 6, 6, 6), crandn(2, 1, 6, 6, 6)),
-         Z._pair_merge_kernel, Z._pair_merge_dense,
-         "puldr,pULDR->lLdDrR", 8 * 216 * 2 * 216),
-    ]
-    for name, args, kern, dense, expr, flops in sites:
-        want = dense(*args)
-        line = held(torch, name, [list(t.shape) for t in args], kern(*args),
-                    want, TOL_F32, dtype="complex64", form="kernel vs dense")
-        measure_line(torch, line, lambda k=kern, a=args: k(*a),
-                     lambda d=dense, a=args: d(*a),
-                     lambda e=expr, a=args: torch.einsum(e, *a), flops,
-                     8 * (sum(t.numel() for t in args) + want.numel()))
+    def operands(site, d, g, dtype, layout, main=False, dyadic=False):
+        def part(shape):
+            if dyadic:   # k / 128, |k| <= 255: bf16 values, exact sums
+                return torch.randint(-255, 256, shape, generator=gen,
+                                     device="cuda").float() / 128
+            return torch.randn(shape, generator=gen, device="cuda")
+        xs = [torch.complex(part(s), part(s)) if dtype == "complex64"
+              else part(s) for s in zipup_shapes(site, d, g, main)]
+        if layout == "views":
+            # S0 as a permuted view, the bra as a conj view (as the engine
+            # passes it), the ket as every other entry of a longer axis
+            perm = list(range(1, xs[0].dim())) + [0]
+            back = [xs[0].dim() - 1] + list(range(xs[0].dim() - 1))
+            xs[0] = xs[0].permute(back).contiguous().permute(perm)
+            if site != "zipup_first_onelayer":
+                bra = 0 if site == "pair_merge" else 1
+                xs[bra] = xs[bra].conj()
+                wide = torch.zeros(xs[-1].shape[:-1]
+                                   + (2 * xs[-1].shape[-1],),
+                                   dtype=xs[-1].dtype, device="cuda")
+                wide[..., ::2] = xs[-1]
+                xs[-1] = wide[..., ::2]
+        return xs
+
+    def run(site, xs, compute):
+        prev = dispatch.set_kernel_compute(compute)
+        try:
+            return dispatch.site(site).kernel_fn(*xs)
+        finally:
+            dispatch.set_kernel_compute(prev)
+
+    summary = {}
+    for site, kernel, plain_name, expr, main_g, flops in ZIPUP_SITES:
+        plain = getattr(Z, plain_name)
+        dense = dispatch.site(site).dense_fn
+        # -- every shape, layout, dtype and compute against the plain
+        #    version; with f32 multiplicands also against the dense einsum
+        cases, worst = 0, {"vs_plain": 0.0, "vs_dense": 0.0, "bf16_t1": 0.0}
+        shapes = [(6, main_g, True)] + [(d, g, False)
+                                        for d, g in ZIPUP_RAGGED]
+        for d, g, main in shapes:
+            for dtype in ("complex64", "float32"):
+                for layout in ("contiguous", "views"):
+                    xs = operands(site, d, g, dtype, layout, main)
+                    for compute in (None, "bfloat16"):
+                        got = run(site, xs, compute)
+                        want = plain(*xs, compute)
+                        tol = TOL_F32
+                        if compute and site == "zipup_first_twolayer":
+                            tol = t1_flip_tol(xs)
+                        err = rel_gap(torch, got, want)
+                        check(got.is_contiguous() and got.shape == want.shape
+                              and str(got.dtype) == f"torch.{dtype}"
+                              and math.isfinite(err) and err <= tol,
+                              f"{site} {[list(x.shape) for x in xs]} {dtype} "
+                              f"{layout} {compute}: rel err {err} > {tol}")
+                        worst["vs_plain"] = max(worst["vs_plain"], err / tol)
+                        if compute is None:
+                            err = rel_gap(torch, got, dense(*xs))
+                            check(err <= TOL_F32, f"{site} vs dense: {err}")
+                            worst["vs_dense"] = max(worst["vs_dense"], err)
+                        cases += 1
+        if site == "zipup_first_twolayer":
+            # t1 rounded where the plain version rounds it: on dyadic
+            # operands t1 is exact in f32, and the witness that skips its
+            # rounding misses
+            for d, g in ((6, 36), (8, 128)):
+                xs = operands(site, d, g, "complex64", "views", dyadic=True)
+                want = plain(*xs, "bfloat16")
+                err = rel_gap(torch, run(site, xs, "bfloat16"), want)
+                gap = rel_gap(torch, torch.einsum(expr, *xs), want)
+                check(err <= TOL_F32 and gap > 10 * TOL_F32,
+                      f"{site} t1 rounding: {err}, witness {gap}")
+                worst["bf16_t1"] = max(worst["bf16_t1"], err)
+        # -- the main shape, timed first (profiling can slow the launches
+        #    after it): on contiguous operands, and on views (the bra a conj
+        #    view, S0 and the ket strided)
+        xs = operands(site, 6, main_g, "complex64", "contiguous", main=True)
+        views = operands(site, 6, main_g, "complex64", "views", main=True)
+        fn = lambda s=site, xs=xs: run(s, xs, None)
+        fn_views = lambda s=site, xs=views: run(s, xs, None)
+        want = plain(*views)
+        line = held(torch, site, [list(x.shape) for x in xs], fn_views(),
+                    want, TOL_F32, dtype="complex64", kernel_name=kernel,
+                    form="kernel vs plain, bra conj view, S0 and ket strided",
+                    cases=cases, worst=worst)
+        line["max_abs_err_vs_dense"] = (
+            fn_views() - dense(*views)).abs().max().item()
+        measure_line(torch, line, fn, lambda p=plain, xs=xs: p(*xs),
+                     lambda e=expr, xs=xs: torch.einsum(e, *xs), flops,
+                     8 * (sum(x.numel() for x in xs) + want.numel()))
+        line["views"] = {
+            "ms": time_ms(torch, fn_views),
+            "plain_ms": time_ms(torch, lambda p=plain, xs=views: p(*xs)),
+            "library_ms": time_ms(torch, lambda e=expr, xs=views:
+                                  torch.einsum(e, *xs))}
+        # -- one launch a call, a bitwise repeat, one device kernel
+        for args in (xs, views):
+            for compute in (None, "bfloat16"):
+                before = Z.kernel_launches()
+                before_ta = KM.tall_apply_complex.launches
+                got = run(site, args, compute)
+                after = Z.kernel_launches()
+                check(after[kernel] == before[kernel] + 1
+                      and sum(after.values()) == sum(before.values()) + 1
+                      and KM.tall_apply_complex.launches == before_ta,
+                      f"{site} {compute}: launches {before} -> {after}")
+                check(torch.equal(run(site, args, compute), got),
+                      f"{site} {compute}: a second call differs")
+        for call in (fn, fn_views):
+            one = profiled_kernels(torch, call, 1)
+            check(len(one) == 1 and all(kernel + "_kernel" in k and c == 1
+                                        for k, (c, _) in one.items()),
+                  f"{site}: one call ran the device kernels {one}")
+        many = profiled_kernels(torch, fn, 50)
+        line.update(launches_per_call=1, repeats_bitwise=True,
+                    profiled_kernels=sorted(one),
+                    device_ms=sum(ms * c for c, ms in many.values()) / 50)
+        line["host_share"] = 1 - line["device_ms"] / line["ms"]
         emit(line)
+        if site != "pair_merge":    # the pair merge is on no path yet
+            summary[kernel] = line
+    return summary
 
 
 def ssd_flops_bytes(bh, length, p, n, chunk, itemsize, state):
@@ -915,6 +1096,7 @@ def phase_main_path(torch, np):
     from repro_torch.kernels.gram import gram, gram_complex
     from repro_torch.kernels.matvec import tall_apply, tall_apply_complex
     from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.kernels import zipup_block as Z
 
     rng = np.random.default_rng(SEED)
     thetas = rng.uniform(0.0, THETA_MAX, size=(LAYERS, GRID * GRID))
@@ -925,13 +1107,15 @@ def phase_main_path(torch, np):
     for fn in (gram, gram_complex, tall_apply, tall_apply_complex,
                tiled_matmul):
         fn.launches = 0
+    Z.reset_kernel_launches()
     kern, state = run_main_path(torch, torch.complex64, "kernel", thetas,
                                 bits_list)
     counters = dispatch.dispatch_stats()
     launches = {"gram": gram.launches, "gram_complex": gram_complex.launches,
                 "tall_apply": tall_apply.launches,
                 "tall_apply_complex": tall_apply_complex.launches,
-                "tiled_matmul": tiled_matmul.launches}
+                "tiled_matmul": tiled_matmul.launches,
+                **Z.kernel_launches()}
 
     dense, _ = run_main_path(torch, torch.complex64, "dense", thetas, bits_list)
     anchor, _ = run_main_path(torch, torch.complex128, "dense", thetas,
@@ -972,10 +1156,20 @@ def phase_main_path(torch, np):
               f"site {site} never ran through a kernel")
     # complex64 throughout: every Gram is one gram_complex launch and every
     # tall-apply one tall_apply_complex launch, so the real kernels (the
-    # planar forms' parts) never run
-    for name in ("gram_complex", "tall_apply_complex"):
+    # planar forms' parts) never run; each zip-up site call is one launch of
+    # its own kernel and none of the tall-apply
+    for name in ("gram_complex", "tall_apply_complex", "zipup_pair",
+                 "zipup_chain"):
         check(launches[name] > 0,
               f"kernel {name} was never launched on the main path")
+    check(launches["zipup_pair"]
+          == counters["kernel_zipup_first_onelayer_calls"]
+          + counters["kernel_pair_merge_calls"]
+          and launches["zipup_chain"]
+          == counters["kernel_zipup_first_twolayer_calls"]
+          and launches["tall_apply_complex"]
+          == counters["kernel_tall_apply_calls"],
+          f"launches {launches} against site calls {counters}")
     for name in ("gram", "tall_apply", "tiled_matmul"):
         check(launches[name] == 0,
               f"kernel {name} ran {launches[name]} times on the c64 main path")
@@ -991,6 +1185,7 @@ def phase_profile(torch, state):
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.gram import gram_complex
     from repro_torch.kernels.matvec import tall_apply_complex
+    from repro_torch.kernels import zipup_block as Z
 
     option = BMPS.randomized(CHI, niter=4, oversample=8)
     prev = dispatch.set_kernel_backend("kernel")
@@ -998,6 +1193,7 @@ def phase_profile(torch, state):
         norm_squared(state, option)
         torch.cuda.synchronize()
         gram_complex.launches = tall_apply_complex.launches = 0
+        Z.reset_kernel_launches()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1009,8 +1205,9 @@ def phase_profile(torch, state):
     emit({"phase": "profile", "what": "norm_squared, complex64, kernel mode",
           "launches_per_norm": {
               "gram_complex": gram_complex.launches,
-              "tall_apply_complex": tall_apply_complex.launches},
-          **device_profile(prof, wall)})
+              "tall_apply_complex": tall_apply_complex.launches,
+              **Z.kernel_launches()},
+          **device_profile(prof, wall, focus=("zipup",))})
 
 
 def device_profile(prof, wall: float, focus=()):
@@ -1140,6 +1337,7 @@ def ite_run_line(torch, label, obs, update, contract, steps, dtype, mode,
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.gram import gram_complex
     from repro_torch.kernels.matvec import tall_apply_complex
+    from repro_torch.kernels import zipup_block as Z
 
     if bits is None:
         bits = [[0] * ITE_GRID] * ITE_GRID
@@ -1151,6 +1349,7 @@ def ite_run_line(torch, label, obs, update, contract, steps, dtype, mode,
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             gram_complex.launches = tall_apply_complex.launches = 0
+            Z.reset_kernel_launches()
             widened = eigh_reg.widened
             t0 = time.perf_counter()
             state = computational_basis(bits, dtype=dtype)
@@ -1164,7 +1363,8 @@ def ite_run_line(torch, label, obs, update, contract, steps, dtype, mode,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {"gram_complex": gram_complex.launches,
-                        "tall_apply_complex": tall_apply_complex.launches}
+                        "tall_apply_complex": tall_apply_complex.launches,
+                        **Z.kernel_launches()}
             widened = eigh_reg.widened - widened
             peak = torch.cuda.max_memory_allocated()
         # after the counts were read: these launches do not count
@@ -1208,6 +1408,7 @@ def profile_trotter_step(torch, label, state, obs, update):
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.gram import gram_complex
     from repro_torch.kernels.matvec import tall_apply_complex
+    from repro_torch.kernels import zipup_block as Z
 
     moments = trotter_moments(obs, ITE_TAU)
     prev = dispatch.set_kernel_backend("kernel")
@@ -1216,6 +1417,7 @@ def profile_trotter_step(torch, label, state, obs, update):
                                                TorchKey(SEED))
         torch.cuda.synchronize()
         gram_complex.launches = tall_apply_complex.launches = 0
+        Z.reset_kernel_launches()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1227,9 +1429,11 @@ def profile_trotter_step(torch, label, state, obs, update):
     emit({"phase": "ite_profile", "what": label,
           "launches_per_step": {
               "gram_complex": gram_complex.launches,
-              "tall_apply_complex": tall_apply_complex.launches},
+              "tall_apply_complex": tall_apply_complex.launches,
+              **Z.kernel_launches()},
           **device_profile(prof, wall, focus=("gram_tile", "gram_reduce",
-                                              "tall_apply_kernel"))})
+                                              "tall_apply_kernel",
+                                              "zipup"))})
 
 
 def phase_ite(torch, np):
@@ -1313,7 +1517,7 @@ def phase_ite(torch, np):
                for k, run in j_runs.items()}}
     c64_runs = {"tfi_fu": fu64, "j1j2_qr": j64}
     launches = {k: sum(run["launches"][k] for run in c64_runs.values())
-                for k in ("gram_complex", "tall_apply_complex")}
+                for k in fu64["launches"]}
     bounds = {"tfi_fu_c64_vs_c128": TOL_ITE_C64,
               "j1j2_c64_vs_c128": TOL_ITE_C64,
               "j1j2_c64_dense_vs_c128": TOL_ITE_C64,
@@ -1330,8 +1534,9 @@ def phase_ite(torch, np):
     for k, bound in bounds.items():
         check(errs[k] <= bound, f"{k} {errs[k]} > {bound}: {errs}")
     for name, run in c64_runs.items():
-        for k, n in run["launches"].items():
-            check(n > 0, f"{k} never launched in the c64 {name} run")
+        for k in TWO_LAYER_KERNELS:
+            check(run["launches"][k] > 0,
+                  f"{k} never launched in the c64 {name} run")
 
     profile_trotter_step(torch, "full update, 4x4 TFI, D=3, chi=12, c64",
                          state64, tfi, held_fu)
@@ -1617,18 +1822,21 @@ def vqe_kernel_energies(torch, np, obs, thetas, budgets):
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.gram import gram_complex
     from repro_torch.kernels.matvec import tall_apply_complex
+    from repro_torch.kernels import zipup_block as Z
 
     prev = dispatch.set_kernel_backend("kernel")
     try:
         with captured_site_calls(torch, VQE_SITES) as calls:
             gram_complex.launches = tall_apply_complex.launches = 0
+            Z.reset_kernel_launches()
             with torch.no_grad():
                 energies = [float(vqe_energy_peps(
                     thetas, VQE_GRID, VQE_GRID, obs, QRUpdate(rank=rank),
                     BMPS(chi), dtype=torch.complex64))
                     for rank, chi in budgets]
             launches = {"gram_complex": gram_complex.launches,
-                        "tall_apply_complex": tall_apply_complex.launches}
+                        "tall_apply_complex": tall_apply_complex.launches,
+                        **Z.kernel_launches()}
         # after the counts were read: these launches do not count
         operands = hold_site_calls(torch, calls)
     finally:
@@ -1821,8 +2029,9 @@ def phase_vqe(torch, np):
           f"c64 gradient did not route dense: {grad_routing}")
     check(refused is not None and "no backward" in refused,
           f"forced kernel mode took a differentiated operand: {refused}")
-    for k, n in launches.items():
-        check(n > 0, f"{k} never launched in the c64 kernel-mode energies")
+    for k in TWO_LAYER_KERNELS:
+        check(launches[k] > 0,
+              f"{k} never launched in the c64 kernel-mode energies")
     for name, o in opts.items():
         check(all(math.isfinite(e) for e in o["history"]),
               f"{name}: non-finite energy: {o}")
@@ -1934,7 +2143,7 @@ def main() -> int:
                 for f in found.values()),
                 f"{label} spills or is missing from the build log: {found}")
         summary = timed("kernels", phase_kernels, torch)
-        timed("wrappers", phase_wrappers, torch)
+        summary.update(timed("wrappers", phase_wrappers, torch))
         summary.update(timed("lm_kernels", phase_lm_kernels, torch))
         timed("small_reference", phase_small_reference, torch, np)
         launches, state = timed("main_path", phase_main_path, torch, np)
@@ -1969,7 +2178,13 @@ def main() -> int:
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:24"),
                "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
-                            "src/repro/kernels/ssd_scan.py:23")}
+                            "src/repro/kernels/ssd_scan.py:23"),
+               "zipup_pair": (
+                   "src/repro_torch/kernels/csrc/zipup_block.cu",
+                   "src/repro/kernels/zipup_block.py:42"),
+               "zipup_chain": (
+                   "src/repro_torch/kernels/csrc/zipup_block.cu",
+                   "src/repro/kernels/zipup_block.py:67")}
     kernels = []
     for name, (source, replaces) in sources.items():
         s = summary[name]
@@ -1981,7 +2196,12 @@ def main() -> int:
                         "shape": s["shape"], "max_abs_err": s["max_abs_err"],
                         "ms": s["ms"], "plain_ms": s["plain_ms"],
                         "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-                        "library_ms": s["library_ms"]})
+                        "library_ms": s["library_ms"],
+                        **({"device_ms": s["device_ms"]}
+                           if "device_ms" in s else {})})
+        if name == "zipup_pair":   # the pair merge's kernel too
+            kernels[-1]["also_replaces"] = [
+                "src/repro/kernels/zipup_block.py:101"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": phase_s, "vqe": vqe_summary})
     emit({"kernels": kernels})

@@ -42,7 +42,8 @@ def zipup_block(v: Optional[torch.Tensor], svec_block: Sequence[torch.Tensor],
     j0 = 0
     if first:
         # V0: S_0 (b,f,g) x O_0 (f,c,h,k); left bonds b,c are dim 1
-        # (kernel-dispatched site "zipup_first_onelayer")
+        # (kernel-dispatched site "zipup_first_onelayer": in kernel mode one
+        # launch whose output is contiguous, so the reshape is a view)
         v = first_column_onelayer(svec_block[0], row_block[0])
         b, c = v.shape[0], v.shape[1]
         v = v.reshape(b * c, v.shape[2], v.shape[3], v.shape[4])
@@ -91,7 +92,9 @@ def zipup_block_twolayer(v: Optional[torch.Tensor],
     j0 = 0
     if first:
         # S_0:(b,f1,f2,g), bra:(p,f1,c1,h1,k1), ket:(p,f2,c2,h2,k2); b,c1,c2 dim 1
-        # (kernel-dispatched site "zipup_first_twolayer")
+        # (kernel-dispatched site "zipup_first_twolayer": in kernel mode one
+        # launch that reads the bra's conj view in place and writes a
+        # contiguous output, so the reshape is a view)
         v = first_column_twolayer(svec_block[0], bra_block[0].conj(),
                                   ket_block[0])
         sh = v.shape

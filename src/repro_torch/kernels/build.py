@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("gram.cu", "tall_apply.cu", "tiled_matmul.cu", "flash_attention.cu",
-           "ssd_scan.cu")
+           "ssd_scan.cu", "zipup_block.cu")
 HEADERS = ("mma_bf16.cuh",)     # included by the flash and SSD sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,6 +45,9 @@ _SIGNATURES = {
     "repro_ssd_scan_bf16": (_P,) * 8 + (_I,) * 5 + (_L,) * 8 + (_P,),
     "repro_ssd_scan_smem_bytes": (_I, _I, _I),
     "repro_ssd_chunked_smem_bytes": (_I, _I, _I),
+    # the shapes and strides in one int64 host array (csrc/zipup_block.cu)
+    "repro_zipup_pair": (_P, _P, _P, _P, _I, _P),
+    "repro_zipup_chain": (_P, _P, _P, _P, _P, _I, _P),
 }
 
 # Shared memory one block may use on the H100 (bytes, dynamic).

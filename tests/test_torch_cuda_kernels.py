@@ -16,6 +16,7 @@ from repro_torch.kernels import gram as KG  # noqa: E402
 from repro_torch.kernels import matvec as KM  # noqa: E402
 from repro_torch.kernels import ssd_scan as KS  # noqa: E402
 from repro_torch.kernels import tiled_matmul as KT  # noqa: E402
+from repro_torch.kernels import zipup_block as KZ  # noqa: E402
 
 # kernel vs plain version: the same f32 products summed in another order
 F32_TOL = 1e-5
@@ -539,3 +540,173 @@ def test_full_update_bond_in_kernel_mode_matches_dense(cuda, sites):
     (vk, (fk,)), (vd, (fd,)) = out["kernel"], out["dense"]
     assert _crel(vk, vd) <= 1e-4
     assert abs(fk - fd) <= 1e-5 and 0.9 <= fk <= 1.0 + 1e-6
+
+
+# ---------------------------------------------------------- zip-up sites --
+# (site, D, g): the main path's D = 6, g = 36, then ragged shapes; p = 2,
+# and u = U = 2 in the pair merge
+ZIPUP_SHAPES = [("onelayer", 6, 36), ("twolayer", 6, 36), ("pair", 6, 0),
+                ("onelayer", 2, 1), ("onelayer", 3, 7), ("onelayer", 8, 128),
+                ("twolayer", 2, 1), ("twolayer", 3, 7), ("twolayer", 4, 36),
+                ("twolayer", 8, 128), ("pair", 2, 0), ("pair", 3, 0),
+                ("pair", 4, 0), ("pair", 8, 0)]
+ZIPUP_SITES = {
+    "onelayer": (KZ._first_onelayer_kernel, KZ.first_onelayer_plain,
+                 "zipup_pair"),
+    "twolayer": (KZ._first_twolayer_kernel, KZ.first_twolayer_plain,
+                 "zipup_chain"),
+    "pair": (KZ._pair_merge_kernel, KZ.pair_merge_plain, "zipup_pair"),
+}
+
+
+def _zipup_operands(seed, site, d, g, dtype=torch.complex64, dyadic=False):
+    """The site's operands on the card: normals, or with ``dyadic`` parts
+    k / 128, |k| <= 255 (bf16 values whose stage-1 sums are exact in f32)."""
+    shapes = {"onelayer": [(1, d, g), (d, 1, d, d)],
+              "twolayer": [(1, d, d, g), (2, d, 1, d, d), (2, d, 1, d, d)],
+              "pair": [(2, 2, d, d, d), (2, 2, d, d, d)]}[site]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def part(shape):
+        if dyadic:
+            return torch.randint(-255, 256, shape, generator=gen,
+                                 device="cuda").float() / 128
+        return torch.randn(shape, generator=gen, device="cuda")
+    if dtype == torch.complex64:
+        return [torch.complex(part(s), part(s)) for s in shapes]
+    return [part(s) for s in shapes]
+
+
+def _zipup_call(site, xs, compute):
+    from repro_torch.kernels import dispatch
+    prev = dispatch.set_kernel_compute(compute)
+    try:
+        return ZIPUP_SITES[site][0](*xs)
+    finally:
+        dispatch.set_kernel_compute(prev)
+
+
+def _t1_flip_tol(xs):
+    """bf16 two-layer on normal inputs: a t1 entry within a sum-order
+    rounding of a bf16 tie rounds the other way (2^-8 of that entry); four
+    such flips of average entries (``tests/test_torch_zipup_block.py``)."""
+    b, f, F, g = xs[0].shape
+    p, _, c, h, k = xs[1].shape
+    return max(F32_TOL, 2.0 ** -8 * (4.0 / (b * F * g * p * c * h * k)) ** 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site,d,g", ZIPUP_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float32])
+@pytest.mark.parametrize("compute", [None, "bfloat16"])
+def test_zipup_kernel_matches_plain(cuda, site, d, g, dtype, compute):
+    """Each zip-up site on the card: one launch of its kernel, a contiguous
+    output in the final order, the plain version's values, and a bit for
+    bit repeat."""
+    xs = _zipup_operands(70 + d, site, d, g, dtype)
+    kernel = ZIPUP_SITES[site][2]
+    before = KZ.kernel_launches()
+    before_ta = KM.tall_apply_complex.launches
+    got = _zipup_call(site, xs, compute)
+    after = KZ.kernel_launches()
+    assert after[kernel] == before[kernel] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    assert KM.tall_apply_complex.launches == before_ta
+    want = ZIPUP_SITES[site][1](*xs, compute)
+    assert got.is_contiguous() and got.dtype == dtype
+    assert got.shape == want.shape
+    tol = _t1_flip_tol(xs) if site == "twolayer" and compute else F32_TOL
+    assert _crel(got, want) <= tol
+    assert torch.equal(_zipup_call(site, xs, compute), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,g", [(3, 7), (6, 36), (8, 128)])
+def test_zipup_chain_rounds_t1_where_the_plain_version_does(cuda, d, g):
+    """bf16 multiplicands on dyadic operands, where t1 is exact in f32:
+    the kernel's t1 rounding matches the plain version's to F32_TOL, and
+    the witness that skips it misses by more than ten times that."""
+    xs = _zipup_operands(80 + d, "twolayer", d, g, dyadic=True)
+    got = _zipup_call("twolayer", xs, "bfloat16")
+    want = KZ.first_twolayer_plain(*xs, "bfloat16")
+    assert _crel(got, want) <= F32_TOL
+    witness = torch.einsum("bfFg,pfchk,pFCHK->bcChHgkK", *xs)
+    assert _crel(witness, want) > 10 * F32_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["onelayer", "twolayer", "pair"])
+@pytest.mark.parametrize("compute", [None, "bfloat16"])
+def test_zipup_kernels_read_conj_and_strided_views_in_place(cuda, site,
+                                                            compute):
+    """A conj view of the bra, a permuted S0 and a sliced ket, read in
+    place: the call allocates its output and nothing else."""
+    xs = _zipup_operands(90, site, 6, 36)
+    if site == "onelayer":
+        xs[0] = xs[0].permute(0, 2, 1).contiguous().permute(0, 2, 1)
+    else:
+        bra = 0 if site == "pair" else 1
+        xs[bra] = xs[bra].conj()
+        if site == "twolayer":
+            xs[0] = xs[0].permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+        wide = torch.zeros(xs[-1].shape[:-1] + (2 * xs[-1].shape[-1],),
+                           dtype=xs[-1].dtype, device=cuda)
+        wide[..., ::2] = xs[-1]
+        xs[-1] = wide[..., ::2]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = _zipup_call(site, xs, compute)
+    torch.cuda.synchronize()
+    # the caching allocator rounds a block up to 512 bytes
+    assert torch.cuda.max_memory_allocated() - base == \
+        -(-got.numel() * 8 // 512) * 512
+    want = ZIPUP_SITES[site][1](*xs, compute)
+    tol = _t1_flip_tol(xs) if site == "twolayer" and compute else F32_TOL
+    assert _crel(got, want) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["onelayer", "twolayer", "pair"])
+def test_zipup_kernels_refuse_double_precision(cuda, site):
+    xs = [x.to(torch.complex128) for x in _zipup_operands(95, site, 3, 7)]
+    with pytest.raises(TypeError, match="complex64"):
+        ZIPUP_SITES[site][0](*xs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("twolayer", [False, True])
+def test_zipup_engine_reshape_after_the_site_is_a_view(cuda, twolayer):
+    """The first column of a zip-up in kernel mode: the site's output is
+    contiguous and the carry the engine makes of it shares its storage."""
+    from repro_torch.core.einsumsvd import DirectSVD
+    from repro_torch.core.engines import zipup as ZE
+    from repro_torch.kernels import dispatch
+
+    name = "zipup_first_twolayer" if twolayer else "zipup_first_onelayer"
+    site, seen = dispatch.site(name), []
+
+    def recording(*args):
+        seen.append(site.kernel_fn(*args))
+        return seen[-1]
+
+    prev = dispatch.set_kernel_backend("kernel")
+    dispatch.register_kernel(name, kernel=recording, dense=site.dense_fn,
+                             supported=site.supported, auto=site.auto)
+    try:
+        if twolayer:
+            s0, bra, ket = _zipup_operands(96, "twolayer", 6, 36)
+            _, carry = ZE.zipup_block_twolayer(None, [s0], [bra], [ket], 8,
+                                               DirectSVD(), [None],
+                                               first=True, last=False)
+        else:
+            s0, o0 = _zipup_operands(97, "onelayer", 6, 36)
+            _, carry = ZE.zipup_block(None, [s0], [o0], 8, DirectSVD(),
+                                      [None], first=True, last=False)
+    finally:
+        dispatch.register_kernel(name, kernel=site.kernel_fn,
+                                 dense=site.dense_fn,
+                                 supported=site.supported, auto=site.auto)
+        dispatch.set_kernel_backend(prev)
+    assert len(seen) == 1 and seen[0].is_contiguous()
+    assert carry.data_ptr() == seen[0].data_ptr()
