@@ -1,0 +1,2 @@
+"""Checkpointing (counterpart of :mod:`repro.checkpoint`)."""
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: F401

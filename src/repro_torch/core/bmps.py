@@ -24,6 +24,7 @@ from repro_torch.core.einsumsvd import DirectSVD, RandomizedSVD
 from repro_torch.core.engines import get_engine
 from repro_torch.core.engines.zipup import _keys, trivial_twolayer_boundary
 from repro_torch.core.peps import scale_by
+from repro_torch.core.precision import resolve_precision, wrap_svd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,8 +33,15 @@ class BMPS:
 
     ``svd=DirectSVD()`` is the paper's BMPS; ``svd=RandomizedSVD()`` gives
     IBMPS / two-layer IBMPS.  ``chi`` is the truncation bond dimension.
-    ``precision`` accepts only ``"exact"`` until the precision policies are
-    ported."""
+    ``precision`` selects the numerical policy
+    (:mod:`repro_torch.core.precision`): ``"exact"`` (default, the bare
+    option) or ``"mixed"`` (one-tier storage demotion around each einsumsvd
+    solve, bf16 multiplicands in the kernel sites).  The ``svd`` option is
+    wrapped at construction, so the engines and the full update inherit
+    the policy.  ``"mixed"`` with the kernels holds its budgets on the small
+    acceptance cases only: on the H100 the 8x8, D=6 main-path norm at
+    chi 64 lands 0.30 from the complex128 one, as a bf16 Gram cannot
+    resolve the spectrum that chi keeps (``PERF.md``)."""
     chi: int
     svd: object = DirectSVD()
     engine: object = "zipup"
@@ -41,9 +49,8 @@ class BMPS:
 
     def __post_init__(self):
         get_engine(self.engine)  # fail fast on unknown engines
-        if self.precision != "exact":
-            raise TypeError(f"unknown precision {self.precision!r}: the port "
-                            "supports only 'exact' so far")
+        policy = resolve_precision(self.precision)  # fail fast on bad names
+        object.__setattr__(self, "svd", wrap_svd(self.svd, policy))
 
     @classmethod
     def randomized(cls, chi: int, niter: int = 4, oversample: int = 8,

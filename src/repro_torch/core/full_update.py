@@ -31,8 +31,9 @@ structure).  The ALS objective yields the bond truncation fidelity
 
 kept on the device per bond and read by :func:`drain_fidelities`.
 
-Not ported: the reference's runtime-guard retry of a bond (its guard and
-checkpoint/resume wait for ROADMAP PEPS item 7).
+Under an active runtime guard (:mod:`repro_torch.core.runtime_guard`) each
+bond's ALS result is checked, and a failed bond is retried once from a
+DirectSVD seed.
 """
 from __future__ import annotations
 
@@ -42,11 +43,12 @@ from typing import List, Tuple
 import torch
 
 from repro_torch.core import gates as _gates
-from repro_torch.core import planner
+from repro_torch.core import planner, runtime_guard
 from repro_torch.core.bmps import BMPS
-from repro_torch.core.einsumsvd import einsumsvd
+from repro_torch.core.einsumsvd import DirectSVD, einsumsvd
 from repro_torch.core.environments import row_environments, strip_boundary
 from repro_torch.core.orthogonalize import gram_qr
+from repro_torch.core.precision import PrecisionWrapped
 from repro_torch.core.svd_grad import eigh_reg
 
 # ---------------------------------------------------------------------------
@@ -77,6 +79,14 @@ def pending_fidelities() -> List[float]:
     return _host(_FIDELITY_LOG)
 
 
+def restore_fidelities(values, device) -> None:
+    """Replace the undrained window with ``values`` on ``device`` (the
+    resume path; pairs with :func:`pending_fidelities`)."""
+    _FIDELITY_LOG.clear()
+    _FIDELITY_LOG.extend(torch.tensor(float(v), dtype=torch.float64,
+                                      device=device) for v in values)
+
+
 def _log_fidelity(f: torch.Tensor) -> None:
     if len(_FIDELITY_LOG) >= _FIDELITY_LOG_MAX:
         del _FIDELITY_LOG[0]
@@ -92,7 +102,11 @@ def env_option(update) -> BMPS:
     ``FullUpdate.env_contract`` when set, else ``BMPS(chi, env_svd)``."""
     if update.env_contract is not None:
         return update.env_contract
-    return BMPS(update.chi, update.env_svd)
+    svd = update.env_svd
+    if isinstance(svd, PrecisionWrapped):
+        # keep the policy: BMPS's default "exact" would unwrap the option
+        return BMPS(update.chi, svd, precision=svd.policy)
+    return BMPS(update.chi, svd)
 
 
 def envs_compatible(state, s0: Tuple[int, int], s1: Tuple[int, int],
@@ -257,6 +271,24 @@ def _optimize_bond(env, theta, a0, b0, *, n_iter: int, eps: float,
     return a, b, fid
 
 
+def _guarded_optimize(guard, env, theta, left, right, update):
+    """:func:`_fused_optimize` from the einsumsvd seed ``(left, right)``,
+    with its failure cause under an active ``guard`` (None when healthy
+    or unguarded).  Under a guard a ``torch.linalg.LinAlgError`` of the
+    positive fix or the ALS solves counts as ``"nan"``: cuSOLVER raises
+    where the reference's eigh returns NaN.  Unguarded it propagates."""
+    try:
+        ar, br, fid = _fused_optimize(env, theta, left.movedim(0, 2), right,
+                                      update)
+    except torch.linalg.LinAlgError:
+        if guard is None:
+            raise
+        return None, None, None, "nan"
+    if guard is None:
+        return ar, br, fid, None
+    return ar, br, fid, runtime_guard.check_bond(guard, ar, br, fid)
+
+
 def _fused_optimize(env, theta, a0, b0, update):
     sig = (tuple(env.shape), tuple(theta.shape), tuple(a0.shape),
            tuple(b0.shape), str(env.dtype).replace("torch.", ""),
@@ -317,8 +349,30 @@ def full_update_bond(state, g, s0: Tuple[int, int], s1: Tuple[int, int],
     left, right = einsumsvd(
         update.svd, [g, ra, rb], ["xypq", "abpk", "cdqk"],
         row="xab", col="ycd", rank=update.rank, absorb="both", key=seed_key)
-    ar, br, fid = _fused_optimize(env, theta, left.movedim(0, 2), right,
-                                  update)                # a0:(a,b,x,m)
+    guard = runtime_guard.current()
+    ar, br, fid, cause = _guarded_optimize(guard, env, theta, left, right,
+                                           update)       # a0:(a,b,x,m)
+    if cause is not None:
+        # runtime-guard hook: a non-finite ALS result (or a LinAlgError of
+        # its positive fix or solves) or a fidelity below the floor retries
+        # the bond once from a deterministic DirectSVD seed; NaN after the
+        # retry raises GuardExhaustedError, a low fidelity is accepted
+        # degraded unless fidelity_strict
+        runtime_guard.bond_failure(guard, cause, retried=False,
+                                   detail=f"bond {s0}->{s1}")
+        left, right = einsumsvd(
+            DirectSVD(), [g, ra, rb], ["xypq", "abpk", "cdqk"],
+            row="xab", col="ycd", rank=update.rank, absorb="both",
+            key=seed_key)
+        ar, br, fid, recheck = _guarded_optimize(guard, env, theta, left,
+                                                 right, update)
+        if recheck is None:
+            runtime_guard.bond_recovered(guard, cause)
+        else:
+            fid_s = f"{fid.real.item():.3e}" if fid is not None else "n/a"
+            runtime_guard.bond_failure(
+                guard, recheck, retried=True,
+                detail=f"bond {s0}->{s1} fid={fid_s}")
     _log_fidelity(fid)
 
     if horizontal:

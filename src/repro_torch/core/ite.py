@@ -14,21 +14,35 @@ are aggregated into the result.  The Rayleigh quotient
 <psi|H|psi>/<psi|psi> over cached environments tracks convergence.
 
 The loop splits its key exactly where the reference does, so a key object
-backed by ``jax.random`` draws the reference's sketches.  Not ported yet:
-the runtime guard (``guard=``) and checkpoint/resume (``checkpoint_dir=``),
-ROADMAP PEPS item 7.
+backed by ``jax.random`` draws the reference's sketches.
+
+Robustness (``docs/robustness.md`` describes the reference's contract):
+
+* ``checkpoint_dir=``/``checkpoint_every=`` snapshot the complete loop
+  state — site tensors, ``log_scale``, the key's state, the energy trace,
+  the cached row environments and refresh counter, the undrained fidelity
+  window — through :class:`repro_torch.checkpoint.CheckpointManager`, with
+  the reference's leaf names.  A run called again with the same arguments
+  resumes from the latest checkpoint and reproduces the uninterrupted
+  run's energies bit for bit: the environments and the refresh counter
+  are in the snapshot so that the key stream is split at the same places.
+* ``guard=`` activates the runtime guard
+  (:mod:`repro_torch.core.runtime_guard`) over the run; its report lands
+  in ``ITEResult.guard``.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import full_update as _fu
 from repro_torch.core import gates as G
-from repro_torch.core import planner
+from repro_torch.core import planner, runtime_guard
 from repro_torch.core import statevector as sv
 from repro_torch.core.bmps import BMPS
 from repro_torch.core.environments import row_environments
@@ -86,10 +100,86 @@ class ITEResult:
     # FullUpdate only: per measurement point, the minimum bond truncation
     # fidelity since the previous one; None for QRUpdate/DirectUpdate
     fidelities: Optional[List[float]] = None
-    # the reference's runtime-guard report and resume step; the port has
-    # neither yet (ROADMAP PEPS item 7), so both stay None
-    guard: Optional[object] = None
+    # the runtime-guard report of a guard= run, else None
+    guard: Optional[runtime_guard.GuardReport] = None
+    # the checkpoint step this run resumed from, or None for a fresh run
     resumed_from: Optional[int] = None
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint encode/decode (flat {path: array} trees, the reference's leaves)
+# ---------------------------------------------------------------------------
+
+def _ite_snapshot(state: PEPS, key, energies, measured_at, fidelities,
+                  fid_window, since_refresh, envs, planner_delta,
+                  next_step: int) -> dict:
+    """The complete loop state as one flat checkpointable tree."""
+    tree = {f"sites/{i}_{j}": state.sites[i][j]
+            for i in range(state.nrow) for j in range(state.ncol)}
+    log_scale = state.log_scale
+    tree["log_scale"] = (log_scale if isinstance(log_scale, torch.Tensor)
+                         else np.asarray(log_scale, dtype=np.float64))
+    tree["key"] = key.state()
+    tree["energies"] = np.asarray(energies, dtype=np.float64)
+    tree["measured_at"] = np.asarray(measured_at, dtype=np.int64)
+    tree["since_refresh"] = np.asarray(since_refresh, dtype=np.int64)
+    if fidelities is not None:
+        tree["fidelities"] = np.asarray(fidelities, dtype=np.float64)
+        tree["fid_window"] = np.asarray(fid_window, dtype=np.float64)
+    if envs is not None:
+        for name, levels in zip(("envs_top", "envs_bot"), envs):
+            for lvl, mps in enumerate(levels):
+                for c, t in enumerate(mps):
+                    tree[f"{name}/{lvl}/{c}"] = t
+    meta = {"next_step": next_step, "planner_delta": planner_delta}
+    tree["meta_json"] = np.array(json.dumps(meta))
+    return tree
+
+
+def _decode_env_levels(flat: dict, prefix: str, device):
+    levels: dict = {}
+    for k, v in flat.items():
+        if not k.startswith(prefix):
+            continue
+        _, lvl, c = k.split("/")
+        levels.setdefault(int(lvl), {})[int(c)] = \
+            torch.from_numpy(v).to(device)
+    return [[levels[l][c] for c in sorted(levels[l])]
+            for l in sorted(levels)] or None
+
+
+def _ite_restore(flat: dict, nrow: int, ncol: int, key_type, device):
+    """Invert :func:`_ite_snapshot` -> (state, key, loop-state dict), the
+    tensors on ``device`` and the key rebuilt as ``key_type``."""
+    sites = [[torch.from_numpy(flat[f"sites/{i}_{j}"]).to(device)
+              for j in range(ncol)] for i in range(nrow)]
+    state = PEPS(sites, torch.from_numpy(flat["log_scale"]).to(device))
+    key = key_type.from_state(flat["key"])
+    meta = json.loads(str(flat["meta_json"][()]))
+    top = _decode_env_levels(flat, "envs_top/", device)
+    bot = _decode_env_levels(flat, "envs_bot/", device)
+    return state, key, {
+        "energies": [float(e) for e in flat["energies"]],
+        "measured_at": [int(s) for s in flat["measured_at"]],
+        "fidelities": ([float(f) for f in flat["fidelities"]]
+                       if "fidelities" in flat else None),
+        "fid_window": ([float(f) for f in flat["fid_window"]]
+                       if "fid_window" in flat else []),
+        "since_refresh": int(flat["since_refresh"]),
+        "envs": (top, bot) if top is not None else None,
+        "next_step": int(meta["next_step"]),
+        "planner_delta": meta.get("planner_delta") or {},
+    }
+
+
+def _merge_planner_stats(prior: dict, current: dict) -> dict:
+    """Whole-logical-run counters: sum the deltas, keep current cache sizes."""
+    out = dict(current)
+    for k, v in prior.items():
+        if k.endswith("_cache_size"):
+            continue
+        out[k] = out.get(k, 0) + v
+    return out
 
 
 def ite_run(
@@ -105,6 +195,9 @@ def ite_run(
     *,
     guard=None,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
+    checkpoint_keep: int = 3,
+    resume: bool = True,
 ) -> ITEResult:
     """Run TEBD imaginary time evolution on a PEPS.
 
@@ -112,17 +205,22 @@ def ite_run(
     :class:`DirectUpdate` or :class:`FullUpdate` (row environments cached
     and refreshed every ``update.env_refresh_every`` gate applications).
     The energy is measured with ``contract`` every ``measure_every`` steps
-    and after the last.  ``guard`` and ``checkpoint_dir`` raise
-    ``NotImplementedError`` until ROADMAP PEPS item 7 ports them."""
-    if guard not in (None, False) or checkpoint_dir is not None:
-        raise NotImplementedError(
-            "the runtime guard and checkpoint/resume of ite_run are not "
-            "ported yet (ROADMAP PEPS item 7, robustness)")
+    and after the last.
+
+    ``guard`` activates the runtime guard for the whole run (``True`` for
+    defaults, a :class:`~repro_torch.core.runtime_guard.GuardConfig` or a
+    ``RuntimeGuard``).  ``checkpoint_dir`` + ``checkpoint_every=N``
+    snapshot the loop state every N steps (async, atomic); with
+    ``resume=True`` a call resumes from the latest checkpoint in the
+    directory, its tensors on ``state``'s device and its key rebuilt with
+    ``type(key).from_state`` (``TorchKey`` when ``key`` is None).
+    ``checkpoint_keep`` is how many checkpoints are kept."""
     check_update(update)
     key = key_or_default(key, DEFAULT_ITE_KEY_SEED)
     moments = trotter_moments(obs, tau)
     energies, measured_at = [], []
     planner_before = planner.stats()
+    prior_planner_delta: dict = {}
 
     is_full = isinstance(update, FullUpdate)
     fidelities: Optional[List[float]] = [] if is_full else None
@@ -130,22 +228,60 @@ def ite_run(
     if is_full:
         _fu.drain_fidelities()  # start the log window fresh
 
-    for step in range(steps):
-        state, key, envs, since_refresh = trotter_step(
-            state, moments, update, key, envs, since_refresh)
-        if (step + 1) % measure_every == 0 or step == steps - 1:
-            key, sub = key.split(2)
-            e = float(expectation(state, obs, contract, use_cache=True,
-                                  key=sub).real)
-            energies.append(e)
-            measured_at.append(step + 1)
+    manager = None
+    start_step = 0
+    resumed_from = None
+    if checkpoint_dir is not None:
+        manager = CheckpointManager(checkpoint_dir, keep=checkpoint_keep)
+        latest = manager.latest_step() if resume else None
+        if latest is not None:
+            device = state.device
+            state, key, loop = _ite_restore(manager.load(latest), state.nrow,
+                                            state.ncol, type(key), device)
+            energies, measured_at = loop["energies"], loop["measured_at"]
+            since_refresh = loop["since_refresh"]
+            envs = loop["envs"]
+            start_step = loop["next_step"]
+            prior_planner_delta = loop["planner_delta"]
+            resumed_from = latest
             if is_full:
-                window = _fu.drain_fidelities()
-                fidelities.append(min(window) if window else float("nan"))
-            if callback is not None:
-                callback(step + 1, e, state)
-    return ITEResult(state, energies, measured_at,
-                     planner.stats_since(planner_before), fidelities)
+                fidelities = loop["fidelities"] or []
+                _fu.restore_fidelities(loop["fid_window"], device)
+
+    active_guard = runtime_guard.resolve(guard)
+    with runtime_guard.maybe(active_guard):
+        for step in range(start_step, steps):
+            state, key, envs, since_refresh = trotter_step(
+                state, moments, update, key, envs, since_refresh)
+            if (step + 1) % measure_every == 0 or step == steps - 1:
+                key, sub = key.split(2)
+                e = float(expectation(state, obs, contract, use_cache=True,
+                                      key=sub).real)
+                energies.append(e)
+                measured_at.append(step + 1)
+                if is_full:
+                    window = _fu.drain_fidelities()
+                    fidelities.append(min(window) if window else float("nan"))
+                if callback is not None:
+                    callback(step + 1, e, state)
+            if manager is not None and checkpoint_every > 0 \
+                    and (step + 1) % checkpoint_every == 0:
+                manager.save(step + 1, _ite_snapshot(
+                    state, key, energies, measured_at, fidelities,
+                    _fu.pending_fidelities() if is_full else [],
+                    since_refresh, envs,
+                    _merge_planner_stats(prior_planner_delta,
+                                         planner.stats_since(planner_before)),
+                    next_step=step + 1))
+    if manager is not None:
+        manager.wait()
+    return ITEResult(
+        state, energies, measured_at,
+        _merge_planner_stats(prior_planner_delta,
+                             planner.stats_since(planner_before)),
+        fidelities,
+        guard=active_guard.report if active_guard is not None else None,
+        resumed_from=resumed_from)
 
 
 def ite_statevector(nrow: int, ncol: int, obs: Observable, tau: float,

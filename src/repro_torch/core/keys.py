@@ -11,7 +11,9 @@ the VQE ensembles' member streams from a **key object** with these methods:
 * ``uniform(shape, lo, hi, dtype, device)`` — a uniform ``[lo, hi)`` real
   tensor (``jax.random.uniform``);
 * ``rademacher(shape, dtype, device)`` — random signs +-1
-  (``jax.random.rademacher``).
+  (``jax.random.rademacher``);
+* ``state()`` — the key as a numpy array, for a checkpoint, and the
+  classmethod ``from_state(arr)`` that rebuilds it.
 
 Every place the reference splits or folds keys keeps the same structure in
 the port, so a key object backed by ``jax.random`` (the parity tests build
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 
 _MASK64 = (1 << 64) - 1
@@ -49,6 +52,14 @@ class TorchKey:
 
     def __repr__(self) -> str:
         return f"TorchKey({self.seed:#x})"
+
+    def state(self) -> np.ndarray:
+        """The 64-bit seed as ``uint64[1]``."""
+        return np.array([self.seed], dtype=np.uint64)
+
+    @classmethod
+    def from_state(cls, arr) -> "TorchKey":
+        return cls(int(np.asarray(arr, dtype=np.uint64).reshape(-1)[0]))
 
     def split(self, n: int) -> List["TorchKey"]:
         return [TorchKey(_mix64(self.seed, i)) for i in range(n)]

@@ -11,6 +11,11 @@ GEMM.  Two kernel-dispatch sites (:mod:`repro_torch.kernels.dispatch`):
 * ``"tall_apply"`` — Q = A P and the final rSVD projections: the
   tall-apply kernel (``src/repro_torch/kernels/matvec.py``).
 
+Under the mixed precision policy the Gram multiplies in bf16 and its
+eigenvalues are clamped at bf16's resolution; Q = A P keeps the operand's
+multiplicands (``tall_project(..., own_dtype=True)``), as P = R^{-1} is
+ill-conditioned.
+
 f64/c128 operands stay dense (the hard dtype gate).
 """
 from __future__ import annotations
@@ -55,7 +60,8 @@ _dispatch.register_kernel(
         _dispatch.tall_skinny_auto(nbig, nsmall, a.device))
 
 
-def _tall_project_dense(a: torch.Tensor, mat: torch.Tensor, n_small: int):
+def _tall_project_dense(a: torch.Tensor, mat: torch.Tensor, n_small: int,
+                        own_dtype: bool = False):
     small_shape = tuple(a.shape[a.dim() - n_small:])
     small_axes = list(range(a.dim() - n_small, a.dim()))
     p = mat.reshape(small_shape + (mat.shape[1],))
@@ -66,27 +72,33 @@ def _tall_project_nbig(a: torch.Tensor, n_small: int) -> int:
     return math.prod(a.shape[: a.dim() - n_small])
 
 
-def _tall_project_kernel(a: torch.Tensor, mat: torch.Tensor, n_small: int):
+def _tall_project_kernel(a: torch.Tensor, mat: torch.Tensor, n_small: int,
+                        own_dtype: bool = False):
     big_shape = tuple(a.shape[: a.dim() - n_small])
     out = planar_matmul(a.reshape(math.prod(big_shape), mat.shape[0]), mat,
-                        compute=_dispatch.kernel_compute())
+                        compute=None if own_dtype
+                        else _dispatch.kernel_compute())
     return out.reshape(big_shape + (mat.shape[1],))
 
 
 _dispatch.register_kernel(
     "tall_apply", kernel=_tall_project_kernel, dense=_tall_project_dense,
-    supported=lambda a, mat, n_small:
+    supported=lambda a, mat, n_small, own_dtype=False:
         _dispatch.dtype_supported(a.dtype, mat.dtype),
-    auto=lambda a, mat, n_small:
+    auto=lambda a, mat, n_small, own_dtype=False:
         _dispatch.tall_skinny_auto(_tall_project_nbig(a, n_small),
                                    max(mat.shape), a.device))
 
 
-def tall_project(a: torch.Tensor, mat: torch.Tensor,
-                 n_small: int) -> torch.Tensor:
+def tall_project(a: torch.Tensor, mat: torch.Tensor, n_small: int,
+                 own_dtype: bool = False) -> torch.Tensor:
     """Contract ``a``'s trailing ``n_small`` axes with the 2D matrix ``mat``
-    (``(nsmall, q)``); the result has shape ``big_shape + (q,)``."""
-    return _dispatch.dispatch("tall_apply", a, mat, n_small)
+    (``(nsmall, q)``); the result has shape ``big_shape + (q,)``.  On the
+    kernel the multiplicands are the kernel compute dtype's
+    (:func:`repro_torch.kernels.dispatch.set_kernel_compute`), or with
+    ``own_dtype`` the operands' own."""
+    return _dispatch.dispatch("tall_apply", a, mat, n_small,
+                              own_dtype=own_dtype)
 
 
 def gram_qr(a: torch.Tensor, n_small: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -100,6 +112,12 @@ def gram_qr(a: torch.Tensor, n_small: int) -> Tuple[torch.Tensor, torch.Tensor]:
     small_shape = tuple(a.shape[a.dim() - n_small:])
     nbig, nsmall = math.prod(big_shape), math.prod(small_shape)
     big_axes = tuple(range(a.dim() - n_small))
+    # a Gram of bf16 multiplicands (the mixed policy on the kernel) resolves
+    # its eigenvalues to bf16's precision only, so they are clamped at
+    # bf16's eps: at the operand's, its noise directions put a 4x4 TFI
+    # norm 2.4e4 off the exact one (tools/precision_drivers.py --ablations)
+    bf16 = (_dispatch.kernel_compute() == "bfloat16"
+            and _dispatch.routes_to_kernel("gram", a, big_axes, nbig, nsmall))
     g_mat = _dispatch.dispatch("gram", a, big_axes, nbig, nsmall)
     # eigh of G / max|G|: the same eigenvectors, eigenvalues scaled back.
     # cuSOLVER's heevd fails to converge on complex64 Grams whose entries
@@ -111,12 +129,17 @@ def gram_qr(a: torch.Tensor, n_small: int) -> Tuple[torch.Tensor, torch.Tensor]:
     lam = lam * scale
     # per-dtype clamp relative to the largest eigenvalue (floor 1.0): the
     # noise directions of a rank-deficient A get sqrt(eps) instead of 0
-    eps = _eps_for(a.dtype) * torch.clamp(lam.abs().max(), min=1.0)
+    eps = _eps_for(torch.bfloat16 if bf16 else a.dtype) * torch.clamp(
+        lam.abs().max(), min=1.0)
     lam = torch.maximum(lam, eps)
     sqrt_lam = torch.sqrt(lam)
     r_mat = sqrt_lam[:, None] * x.mH                 # R = sqrt(L) X^H
     p_mat = x / sqrt_lam[None, :]                    # P = R^{-1} = X L^{-1/2}
-    q = tall_project(a, p_mat, n_small).reshape(a.shape)
+    # Q = A P in the operand's own multiplicands: P amplifies a direction
+    # of eigenvalue lam by sqrt(lam_max / lam), and would amplify bf16's
+    # rounding of A and P as much (in bf16 here that 4x4 TFI norm lies
+    # 2.7e-2 off, against 2.4e-3)
+    q = tall_project(a, p_mat, n_small, own_dtype=True).reshape(a.shape)
     r = r_mat.reshape(small_shape + small_shape)
     return q, r
 

@@ -20,11 +20,16 @@ Counterpart of ``repro.core.planner``.  Two memoization layers keyed by a
    structure and counters, and is where a CUDA-graph capture would go.
 
 Hit/miss counters (:func:`stats`) tick at Python call time.
-:func:`disabled` switches both layers off.
+:func:`disabled` switches both layers off.  :func:`save_path_cache` /
+:func:`load_path_cache` persist the path cache across processes.
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import json
+import os
+import warnings
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -40,17 +45,21 @@ _COUNTERS = {
     "path_hits": 0,
     "path_misses": 0,
     "path_uncached": 0,    # path searches with the cache disabled
+    "path_preloaded": 0,   # entries installed by load_path_cache
     "fused_hits": 0,
     "fused_misses": 0,
 }
 
 
 def stats() -> Dict[str, int]:
-    """Current cache counters + sizes + kernel-dispatch counters (copies)."""
+    """Current cache counters + sizes + kernel-dispatch counters + runtime
+    guard counters (copies)."""
+    from repro_torch.core import runtime_guard
     out = dict(_COUNTERS)
     out["path_cache_size"] = len(_PATH_CACHE)
     out["fused_cache_size"] = len(_FUSED_CACHE)
     out.update(_dispatch.dispatch_stats())
+    out.update(runtime_guard.global_counters())
     return out
 
 
@@ -63,9 +72,11 @@ def stats_since(before: Dict[str, int]) -> Dict[str, int]:
 
 
 def reset_stats() -> None:
+    from repro_torch.core import runtime_guard
     for k in _COUNTERS:
         _COUNTERS[k] = 0
     _dispatch.reset_dispatch_stats()
+    runtime_guard.reset_global_counters()
 
 
 def clear() -> None:
@@ -239,6 +250,73 @@ def cached_einsum(expr: str, *tensors: torch.Tensor) -> torch.Tensor:
     return execute_path(expr, path, tensors)
 
 
+# --------------------------------------------------------------------------
+# Persistent path cache
+# --------------------------------------------------------------------------
+#
+# A restarted process skips every path search by preloading the paths of an
+# earlier one.  The file is JSON with a sha256 checksum over the
+# canonicalized entries and a format version.  A missing file is a silent
+# cold start; any other unusable file (truncated, bad checksum, unknown
+# version, bad JSON) cold-starts with a RuntimeWarning, never an exception.
+
+PATH_CACHE_FORMAT = 1
+
+
+def _path_entries_canonical(entries: list) -> str:
+    return json.dumps(entries, sort_keys=True, separators=(",", ":"))
+
+
+def save_path_cache(path: str) -> int:
+    """Write the in-memory path cache to ``path`` (atomic: a temporary
+    file, then ``os.replace``).  Returns the number of entries written."""
+    entries = sorted(
+        [expr, [list(s) for s in shapes], [list(step) for step in plan]]
+        for (expr, shapes), plan in _PATH_CACHE.items())
+    payload = {
+        "format": PATH_CACHE_FORMAT,
+        "checksum": hashlib.sha256(
+            _path_entries_canonical(entries).encode()).hexdigest(),
+        "entries": entries,
+    }
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(payload, f)
+    os.replace(tmp, path)
+    return len(entries)
+
+
+def load_path_cache(path: str) -> int:
+    """Preload contraction paths from ``path``.  Returns the number of
+    entries installed (0 on a missing or unusable file).  Installed entries
+    tick ``path_preloaded``; later lookups of them count as hits."""
+    try:
+        with open(path) as f:
+            payload = json.load(f)
+        if payload["format"] != PATH_CACHE_FORMAT:
+            raise ValueError(f"unknown path-cache format {payload['format']!r}")
+        entries = payload["entries"]
+        digest = hashlib.sha256(
+            _path_entries_canonical(entries).encode()).hexdigest()
+        if digest != payload["checksum"]:
+            raise ValueError("path-cache checksum mismatch")
+        staged = {}
+        for expr, shapes, plan in entries:
+            if not isinstance(expr, str):
+                raise ValueError("path-cache entry: expr must be a string")
+            key = (expr, tuple(tuple(int(d) for d in s) for s in shapes))
+            staged[key] = [tuple(int(i) for i in step) for step in plan]
+    except FileNotFoundError:
+        return 0
+    except (OSError, ValueError, KeyError, TypeError) as e:
+        warnings.warn(f"ignoring unusable planner path cache {path!r} "
+                      f"({e!r}): cold start", RuntimeWarning)
+        return 0
+    _PATH_CACHE.update(staged)
+    _COUNTERS["path_preloaded"] += len(staged)
+    return len(staged)
+
+
 _INT_LABELS = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
 
 
@@ -288,30 +366,35 @@ def fused_fn(tag: str, signature: tuple, make):
 
 
 def _build_fused(subscripts: Tuple[str, ...], row: str, col: str,
-                 rank: int, n_iter: int, oversample: int, gram_final: bool):
+                 rank: int, n_iter: int, oversample: int, gram_final: bool,
+                 wide_svd: bool):
     from repro_torch.core.rsvd import ImplicitOperator, randomized_svd
 
     def run(tensors: List[torch.Tensor], key):
         op = ImplicitOperator(tensors, list(subscripts), row, col)
         return randomized_svd(op, rank, n_iter=n_iter, oversample=oversample,
-                              key=key, gram_final=gram_final)
+                              key=key, gram_final=gram_final,
+                              wide_svd=wide_svd)
 
     return run
 
 
 def fused_randomized_svd(op, rank: int, n_iter: int = 4, oversample: int = 8,
-                         key=None, gram_final: bool = True):
+                         key=None, gram_final: bool = True,
+                         wide_svd: bool = False):
     """Randomized SVD of an ``ImplicitOperator`` through the per-signature
     callable cache; numerically identical to ``rsvd.randomized_svd``."""
     from repro_torch.core.rsvd import randomized_svd
     if not _CONFIG["fusion"]:
         return randomized_svd(op, rank, n_iter=n_iter, oversample=oversample,
-                              key=key, gram_final=gram_final)
+                              key=key, gram_final=gram_final,
+                              wide_svd=wide_svd)
     sig = network_signature(op.subscripts, [t.shape for t in op.tensors],
                             [t.dtype for t in op.tensors], op.row, op.col)
-    sig = sig + (rank, n_iter, oversample, gram_final,
+    sig = sig + (rank, n_iter, oversample, gram_final, wide_svd,
                  _dispatch.backend_signature(), op.device.type)
     fn = fused_fn("randomized_svd", sig,
                   lambda: _build_fused(tuple(op.subscripts), op.row, op.col,
-                                       rank, n_iter, oversample, gram_final))
+                                       rank, n_iter, oversample, gram_final,
+                                       wide_svd))
     return fn(list(op.tensors), key)

@@ -99,13 +99,16 @@ class ImplicitOperator:
 
 
 def randomized_svd(op: ImplicitOperator, rank: int, n_iter: int = 4,
-                   oversample: int = 8, key=None, gram_final: bool = True):
+                   oversample: int = 8, key=None, gram_final: bool = True,
+                   wide_svd: bool = False):
     """Alg. 4: truncated SVD of an implicit operator.
 
     Returns ``(u, s, v)`` with ``u``: row_shape+(rank,), ``s``: (rank,),
     ``v``: (rank,)+col_shape, such that ``A ~= u @ diag(s) @ v``.
     ``gram_final`` Gram-QRs the tall ``T = A^H P`` and SVDs only its k x k
-    R factor instead of the k x Ncol matrix ``P^H A``."""
+    R factor instead of the k x Ncol matrix ``P^H A``.  ``wide_svd``: the
+    small SVD of a single-precision operator on the card in double precision
+    (:func:`repro_torch.core.svd_grad.svd_reg`)."""
     if key is None:
         key = TorchKey(0)
     max_rank = min(op.row_size, op.col_size)
@@ -122,13 +125,13 @@ def randomized_svd(op: ImplicitOperator, rank: int, n_iter: int = 4,
     if gram_final:
         q_t, r_t = gram_qr(t, 1)                     # q_t: col+(k,), r_t: (k,k)
         # A ~= P T^H = P (q_t r_t)^H = P r_t^H q_t^H
-        u_small, s, vh_small = svd_reg(r_t.mH)
+        u_small, s, vh_small = svd_reg(r_t.mH, wide_svd)
         u_small, s, vh_small = u_small[:, :rank], s[:rank], vh_small[:rank]
         u = tall_project(p, u_small, 1)              # row_shape+(rank,)
         v = tall_project(q_t.conj(), vh_small.T, 1)  # col_shape+(rank,)
         return u, s, v.movedim(-1, 0)
     b = t.conj().reshape(op.col_size, k).T           # (k, ncol)
-    u_small, s, vh = svd_reg(b)
+    u_small, s, vh = svd_reg(b, wide_svd)
     u_small, s, vh = u_small[:, :rank], s[:rank], vh[:rank]
     u = tall_project(p, u_small, 1)
     return u, s, vh.reshape((rank,) + op.col_shape)

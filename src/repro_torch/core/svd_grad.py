@@ -122,30 +122,47 @@ def _svd_reg_vjp(u, s, vh, gu, gs, gvh):
     return ga
 
 
+def _svd(a: torch.Tensor, wide: bool):
+    """``torch.linalg.svd(a, full_matrices=False)``; with ``wide``, a
+    single-precision matrix on the card is factored in double precision and
+    the factors cast back.  The mixed precision policy's solves ask for it:
+    cuSOLVER's single-precision Jacobi ``gesvdj``, torch's choice there, is
+    less accurate than LAPACK, and across a near-degenerate truncation cut
+    it moved the mixed two-layer norm of a 4x4 TFI state 4.4e-5 from the
+    exact one (budget 1e-5), widened 1.0e-7, with ``gesvd`` 3.5e-7 at about
+    twice the time the widening adds (``tools/precision_drivers.py``)."""
+    wider = _WIDER.get(a.dtype) if wide and a.is_cuda else None
+    if wider is None:
+        return torch.linalg.svd(a, full_matrices=False)
+    u, s, vh = torch.linalg.svd(a.to(wider), full_matrices=False)
+    return u.to(a.dtype), s.to(a.real.dtype), vh.to(a.dtype)
+
+
 class SvdReg(torch.autograd.Function):
     """Thin SVD with the regularized derivative (see :func:`svd_reg`)."""
 
     @staticmethod
-    def forward(ctx, a):
-        u, s, vh = torch.linalg.svd(a, full_matrices=False)
+    def forward(ctx, a, wide):
+        u, s, vh = _svd(a, wide)
         ctx.save_for_backward(u, s, vh)
         ctx.save_for_forward(u, s, vh)
         return u, s, vh
 
     @staticmethod
     def backward(ctx, gu, gs, gvh):
-        return _svd_reg_vjp(*ctx.saved_tensors, gu, gs, gvh)
+        return _svd_reg_vjp(*ctx.saved_tensors, gu, gs, gvh), None
 
     @staticmethod
-    def jvp(ctx, da):
+    def jvp(ctx, da, _wide):
         return _svd_reg_jvp(*ctx.saved_tensors, da)
 
 
-def svd_reg(a: torch.Tensor):
+def svd_reg(a: torch.Tensor, wide: bool = False):
     """Thin SVD ``(u, s, vh)``, values of
-    ``torch.linalg.svd(a, full_matrices=False)``, with the regularized
-    derivative."""
-    return SvdReg.apply(a)
+    ``torch.linalg.svd(a, full_matrices=False)`` (with ``wide``, in double
+    precision for a single-precision matrix on the card, :func:`_svd`),
+    with the regularized derivative."""
+    return SvdReg.apply(a, wide)
 
 
 # ---------------------------------------------------------------------------

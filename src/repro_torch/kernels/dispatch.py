@@ -31,7 +31,10 @@ Per call, :func:`dispatch` picks an implementation:
    tensor would keep the graph, so the CPU shows what the card does.
 
 Every decision ticks one of ``kernel_<site>_calls``, ``dense_<site>_calls``
-and ``dense_<site>_grad_calls`` (the differentiated calls of rule 3).
+and ``dense_<site>_grad_calls`` (the differentiated calls of rule 3).  A
+call routed to the kernel first consults the fault site ``kernel.<site>``
+(:mod:`repro_torch.core.faults`): armed, it raises ``InjectedFault`` before
+the kernel runs and before the counter ticks, on a CPU tensor too.
 :func:`backend_signature` captures the state that changes what a cached
 callable computes (modes, per-site overrides, compute dtype, device type);
 the planner folds it into its fused-cache keys.
@@ -91,13 +94,18 @@ def site(name: str) -> KernelSite:
     return _SITES[name]
 
 
+def _recorded(args, kwargs) -> bool:
+    """True when autograd would record a call on these arguments."""
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad
+        for x in (*args, *kwargs.values()))
+
+
 def grad_route(name: str, forced: bool, *args, **kwargs) -> bool:
     """Rule 3 for a call of ``name`` that would reach a kernel: True when
     autograd would record it, so that it must run dense (ticking
     ``dense_<name>_grad_calls``); raises when the kernel is ``forced``."""
-    if not torch.is_grad_enabled() or not any(
-            isinstance(x, torch.Tensor) and x.requires_grad
-            for x in (*args, *kwargs.values())):
+    if not _recorded(args, kwargs):
         return False
     if forced:
         raise RuntimeError(
@@ -120,10 +128,27 @@ def dispatch(name: str, *args, **kwargs):
             return site.dense_fn(*args, **kwargs)
         use_kernel = mode == "kernel" or site.auto(*args, **kwargs)
     if use_kernel:
+        # fault injection (the runtime guard's dense rung): an armed
+        # ``kernel.<name>`` raises here, before the kernel and its count
+        from repro_torch.core import faults
+        if faults.should_fire(f"kernel.{name}") is not None:
+            raise faults.InjectedFault(f"kernel.{name}")
         _COUNTERS[f"kernel_{name}_calls"] += 1
         return site.kernel_fn(*args, **kwargs)
     _COUNTERS[f"dense_{name}_calls"] += 1
     return site.dense_fn(*args, **kwargs)
+
+
+def routes_to_kernel(name: str, *args, **kwargs) -> bool:
+    """Whether :func:`dispatch` would run site ``name``'s kernel on these
+    arguments (a forced kernel that would raise for a differentiated call
+    counts as not), without counting, consulting faults or raising."""
+    site = _SITES[name]
+    mode = _SITE_MODES.get(name, _STATE["mode"])
+    if (mode == "dense" or not site.supported(*args, **kwargs)
+            or _recorded(args, kwargs)):
+        return False
+    return mode == "kernel" or site.auto(*args, **kwargs)
 
 
 def set_kernel_backend(mode: str, site: Optional[str] = None) -> str:

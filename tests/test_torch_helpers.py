@@ -27,7 +27,8 @@ _TORCH = {v: k for k, v in _JNP.items()}
 
 class JaxKey:
     """Key object of the port's protocol (``split``/``fold_in``/``sketch``/
-    ``uniform``/``rademacher``) on top of a ``jax.random`` key."""
+    ``uniform``/``rademacher``/``state``/``from_state``) on top of a
+    ``jax.random`` key."""
 
     def __init__(self, key):
         self.key = jax.random.PRNGKey(key) if isinstance(key, int) else key
@@ -49,6 +50,14 @@ class JaxKey:
     def rademacher(self, shape, dtype, device):
         arr = jax.random.rademacher(self.key, tuple(shape), jnp.int32)
         return torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)
+
+    def state(self):
+        """The raw ``uint32[2]`` key: the reference's ``"key"`` leaf."""
+        return np.asarray(self.key)
+
+    @classmethod
+    def from_state(cls, arr):
+        return cls(jnp.asarray(np.asarray(arr), dtype=jnp.uint32))
 
 
 def to_torch(x, device=CPU):

@@ -303,7 +303,7 @@ def test_planner_caches_hold_once_the_bonds_stop_growing():
     assert all(0.9 <= f <= 1.0 + 1e-9 for f in res.fidelities)
 
 
-def test_unported_and_unknown_options_raise():
+def test_unported_and_unknown_options_raise(tmp_path):
     @dataclasses.dataclass(frozen=True)
     class BogusUpdate:
         rank: int = 2
@@ -314,10 +314,13 @@ def test_unported_and_unknown_options_raise():
         TP.check_update(BogusUpdate())
     with pytest.raises(TypeError, match="BogusUpdate"):
         TI.ite_run(state, obs, 0.05, 1, BogusUpdate(), TB.BMPS(4))
-    for kw in ({"guard": True}, {"checkpoint_dir": "ckpt"}):
-        with pytest.raises(NotImplementedError, match="PEPS item 7"):
-            TI.ite_run(state, obs, 0.05, 1, TP.QRUpdate(rank=2), TB.BMPS(4),
-                       **kw)
+    # the runtime guard and checkpoint/resume are ported (PEPS item 7)
+    res = TI.ite_run(state, obs, 0.05, 1, TP.QRUpdate(rank=2), TB.BMPS(4),
+                     guard=True)
+    assert res.guard is not None and res.guard.events == []
+    res = TI.ite_run(state, obs, 0.05, 1, TP.QRUpdate(rank=2), TB.BMPS(4),
+                     checkpoint_dir=str(tmp_path), checkpoint_every=1)
+    assert res.resumed_from is None and (tmp_path / "step_00000001").is_dir()
     with pytest.raises(NotImplementedError, match="PEPS item 9"):
         TP.FullUpdate(rank=2, env_contract="distributed")
     upd = TP.FullUpdate(rank=2, env_contract=TB.BMPS(6))

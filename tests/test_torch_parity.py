@@ -152,4 +152,4 @@ def test_unknown_options_raise_type_error():
     with pytest.raises(TypeError, match="unknown boundary engine"):
         TB.BMPS(4, engine="variational")
     with pytest.raises(TypeError, match="precision"):
-        TB.BMPS(4, precision="mixed")
+        TB.BMPS(4, precision="bogus")

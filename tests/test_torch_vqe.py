@@ -325,18 +325,22 @@ def test_lapack_qr_update_has_no_wide_derivative():
     assert torch.isfinite(e)
 
 
-def test_not_ported_options_raise():
+def test_not_ported_options_raise(tmp_path):
     obs = tfi_hamiltonian(2, 2)
     kw = dict(n_layers=1, max_bond=2, maxiter=1, device=CPU)
-    for extra, item in ((dict(guard=True), "PEPS item 7"),
-                        (dict(checkpoint_dir="ckpt"), "PEPS item 7"),
-                        (dict(checkpoint_every=1), "PEPS item 7"),
-                        (dict(mesh=object(), method="adam"), "PEPS item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            TV.run_vqe(2, 2, obs, **kw, **extra)
-    with pytest.raises(NotImplementedError, match="PEPS item 7"):
-        TV.vqe_energy_and_grad(np.zeros(4), 2, 2, obs, QRUpdate(rank=2),
-                               BMPS(4), guard=True, device=CPU)
+    with pytest.raises(NotImplementedError, match="PEPS item 9"):
+        TV.run_vqe(2, 2, obs, **kw, mesh=object(), method="adam")
+    # the runtime guard and checkpoint/resume are ported (PEPS item 7)
+    res = TV.run_vqe(2, 2, obs, **kw, method="spsa", guard=True,
+                     checkpoint_dir=str(tmp_path), checkpoint_every=1)
+    assert res.guard is not None and res.guard.events == []
+    assert res.resumed_from is None and (tmp_path / "step_00000001").is_dir()
+    g = TV.runtime_guard.RuntimeGuard()
+    e, grad = TV.vqe_energy_and_grad(np.zeros(4), 2, 2, obs,
+                                     QRUpdate(rank=2), BMPS(4), guard=g,
+                                     device=CPU)
+    assert torch.isfinite(e) and bool(torch.isfinite(grad).all())
+    assert g.report.events == []
     with pytest.raises(ValueError, match="batched driver"):
         TV.run_vqe(2, 2, obs, **kw, method="SLSQP", ensemble=4)
 
