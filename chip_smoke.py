@@ -27,7 +27,14 @@ the gap of a witness that rounds its three f32 operands to bf16), drives the por
 main path — an 8x8 PEPS built by QR-update gates to bond D=6, its
 two-layer IBMPS norm and cached-environment TFI energy at chi=64, and four
 one-layer amplitudes — in complex64 through the kernels, then again through
-the dense torch path and at complex128, and compares.  Then it runs
+the dense torch path and at complex128, and compares.  Then it serves PEPS
+queries (``serving`` phase): the launcher's threaded traffic of amplitudes
+and observables against the main-path state and a second one, through the
+prefix cache and the batched final-row close, held against per-query
+amplitudes and cached-environment expectations (bit for bit, whatever the
+arrival order), a complex128 case and the launcher itself, the variational
+boundary engine at the reference's cases and on the main-path norm, and the
+first-row pair merge through its kernel.  Then it runs
 imaginary time evolution on 4x4 grids (``ite`` phase): the TFI model with
 the full update at D=3 against the QR update and the exact statevector
 ITE, and the J1-J2 model of paper Fig. 13 with the QR update at D=4 from
@@ -203,6 +210,34 @@ ROB_RESUME_RTOL = 1e-12    # resumed vs fresh energies, relative
 ROB_VQE_SPSA_ITERS = 4
 ROB_VQE_ADAM_STEPS = 4
 ROB_VQE_ENSEMBLE = 2
+
+# PEPS query serving (serving phase): the launcher's traffic
+# (src/repro_torch/launch/serve.py) against the main-path state and a second
+# 8x8 state of the next seed, in complex64 kernel mode at the main path's
+# option.  The hot prefixes are rows 0-6 of likely_bitstrings: in complex64
+# a sweep of an unlikely prefix collapses to zeros.
+SERVE_CLIENTS = 4
+SERVE_QUERIES = 32         # per client
+SERVE_OBS_EVERY = 8        # every 8th query is Z(0) + ZZ(0, 1)
+SERVE_WINDOW_MS = 2.0
+SERVE_BASELINE = 4         # cold per-query amplitudes for the speedup line
+# A tight case in complex128, dense: launch/serve.py's default state (4x4
+# RQC, 8 layers, circuit seed 7) at chi 8 with DirectSVD, served and batched
+# against per-query amplitudes (tests/test_serving.py's bound).
+SERVE_TIGHT_GRID = 4
+SERVE_TIGHT_LAYERS = 8
+SERVE_TIGHT_SEED = 7
+SERVE_TIGHT_CHI = 8
+TOL_SERVE_C128 = 1e-10
+# The launcher itself, at the verify skill's recipe.
+SERVE_CLI = ("--grid", "3", "--layers", "4", "--chi", "4", "--states", "2",
+             "--clients", "4", "--queries", "10", "--baseline-queries", "4",
+             "--device", "cuda")
+SERVE_CLI_HOT_PREFIXES = 4  # the launcher's default --hot-prefixes
+# The variational engine at the reference's own cases
+# (tests/test_engines.py): full chi reproduces the exact contraction (3x3
+# one-layer D=3, chi 27, 1e-8), and it beats zip-up at chi 8 (4x4 D=3).
+VAR_EXACT_TOL = 1e-8
 
 # Served at full width and depth (lm_serve phases): one model of each
 # ported family, hybrid, dense and ssm
@@ -670,25 +705,31 @@ def t1_flip_tol(xs):
     return max(TOL_F32, 2.0 ** -8 * (4.0 / (b * F * g * p * c * h * k)) ** 0.5)
 
 
-def profiled_kernels(torch, fn, calls):
+def profiled_kernels(torch, fn, calls, attempts=3):
     """Device kernels of ``calls`` calls of ``fn`` under torch.profiler:
-    {name: (count, mean device ms)}."""
+    {name: (count, mean device ms)}.  A trace with no device event at all
+    is taken again, up to ``attempts`` times: the first profiled call of a
+    run once came back empty on the H100 (the calls' launches counted, the
+    profiler saw none of them)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for evt in prof.key_averages():
-        if not str(evt.device_type).endswith("CUDA"):
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        out[evt.key] = (evt.count, us / 1e3 / max(evt.count, 1))
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            if not str(evt.device_type).endswith("CUDA"):
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = evt.self_cuda_time_total
+            out[evt.key] = (evt.count, us / 1e3 / max(evt.count, 1))
+        if out:
+            break
     return out
 
 
@@ -1163,9 +1204,11 @@ def phase_main_path(torch, np):
     anchor, anchor_state = run_main_path(torch, torch.complex128, "dense",
                                          thetas, bits_list, amplitudes=False)
     # for the robustness phase's mixed-precision norm of the same state
+    # for the serving phase's per-query amplitudes and variational norm
     main = {"c128_state": anchor_state, "norm_c128_dense": anchor["norm"],
             "norm_c64_kernel": kern["norm"], "norm_c128_s": anchor["norm_s"],
-            "norm_c64_kernel_s": kern["norm_s"]}
+            "norm_c64_kernel_s": kern["norm_s"], "bits_list": bits_list,
+            "amplitudes_c64_kernel": list(kern["amplitudes"])}
     for run in (kern, dense, anchor):
         run["norm"], run["energy"] = _as_pair(run["norm"]), _as_pair(run["energy"])
         run["amplitudes"] = [_as_pair(z) for z in run["amplitudes"]]
@@ -1279,6 +1322,389 @@ def device_profile(prof, wall: float, focus=()):
     if focus:
         out["focus"] = [row(*r) for r in rows if any(w in r[1] for w in focus)]
     return out
+
+
+# ---------------------------------------------------------------------------
+# PEPS query serving and the variational engine (serving phase)
+# ---------------------------------------------------------------------------
+
+def reset_peps_launches() -> None:
+    from repro_torch.kernels.gram import gram_complex
+    from repro_torch.kernels.matvec import tall_apply_complex
+    from repro_torch.kernels import zipup_block as Z
+    gram_complex.launches = tall_apply_complex.launches = 0
+    Z.reset_kernel_launches()
+
+
+def peps_launches() -> dict:
+    from repro_torch.kernels.gram import gram_complex
+    from repro_torch.kernels.matvec import tall_apply_complex
+    from repro_torch.kernels import zipup_block as Z
+    return {"gram_complex": gram_complex.launches,
+            "tall_apply_complex": tall_apply_complex.launches,
+            **Z.kernel_launches()}
+
+
+def percentiles_ms(lat_s) -> dict:
+    """p50/p95/p99 in ms, picked as the launcher picks them."""
+    lat = sorted(x * 1e3 for x in lat_s)
+    pick = lambda q: lat[min(len(lat) - 1, int(q * len(lat)))]
+    return {"n": len(lat), "p50": pick(0.50), "p95": pick(0.95),
+            "p99": pick(0.99)} if lat else {"n": 0}
+
+
+def serving_traffic(torch, np, state, main):
+    """(a) The launcher's traffic against the main-path state and a second
+    8x8 state, c64, forced kernel mode, the main path's option.  Returns
+    the line and the kernels' launches while serving it."""
+    import threading
+    from repro_torch.core.bmps import BMPS, amplitude
+    from repro_torch.core.environments import row_environments
+    from repro_torch.core.expectation import DEFAULT_EXPECTATION_KEY_SEED, \
+        expectation_from_envs
+    from repro_torch.core.keys import TorchKey
+    from repro_torch.core.observable import Observable
+    from repro_torch.core.serving import ServingEngine
+
+    option = BMPS.randomized(CHI, niter=4, oversample=8)
+    thetas = np.random.default_rng(SEED + 1).uniform(
+        0.0, THETA_MAX, size=(LAYERS, GRID * GRID))
+    states = {"main": state,
+              "next": build_state(torch, GRID, LAYERS, RANK, torch.complex64,
+                                  thetas)}
+    hot = {"main": np.stack(main["bits_list"]).reshape(-1, GRID, GRID),
+           "next": np.stack(likely_bitstrings(np, thetas, GRID, N_AMPLITUDES)
+                            ).reshape(-1, GRID, GRID)}
+    prefixes = {name: {b[:-1].tobytes() for b in bits}
+                for name, bits in hot.items()}
+    obs = Observable.Z(0) + Observable.ZZ(0, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_peps_launches()
+    engine = ServingEngine(window_ms=SERVE_WINDOW_MS)
+    for name, st in states.items():
+        engine.register_state(name, st, option)
+    t0 = time.perf_counter()
+    warm = {name: engine.amplitude_batch(name, bits)
+            for name, bits in hot.items()}
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    names = list(states)
+    records = []          # (client seed, kind, name, bits, future)
+    lock = threading.Lock()
+
+    def client(seed, lat):
+        crng = np.random.default_rng(seed)
+        pending = []
+        for q in range(SERVE_QUERIES):
+            name = names[crng.integers(len(names))]
+            if (q + 1) % SERVE_OBS_EVERY == 0:
+                kind, bits = "obs", None
+                t = time.perf_counter()
+                fut = engine.submit_expectation(name, obs)
+            else:
+                kind = "amp"
+                bits = hot[name][crng.integers(len(hot[name]))].copy()
+                bits[-1] = crng.integers(0, 2, GRID)
+                t = time.perf_counter()
+                fut = engine.submit_amplitude(name, bits)
+            pending.append((kind, t, fut))
+            with lock:
+                records.append((seed, kind, name, bits, fut))
+        for kind, t, fut in pending:
+            if fut.exception(timeout=600) is None:
+                with lock:
+                    lat[kind].append(time.perf_counter() - t)
+
+    def traffic_round(seed):
+        """The launcher's clients, one thread each; q/s and latencies."""
+        lat = {"amp": [], "obs": []}
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(seed + i, lat))
+                   for i in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = len(lat["amp"]) + len(lat["obs"])
+        return {"wall_s": wall, "queries": total, "q_per_s": total / wall,
+                "amplitude_latency_ms": percentiles_ms(lat["amp"]),
+                "observable_latency_ms": percentiles_ms(lat["obs"])}
+
+    # the first round builds each state's observable environments as its
+    # first expectation query arrives; in the second every cache is warm
+    rounds = {"first": traffic_round(1000), "steady": traffic_round(2000)}
+    launches = peps_launches()
+    stats = engine.stats()
+    peak = torch.cuda.max_memory_allocated()
+    engine.close()
+    pending = [r for r in records if not r[4].done()]
+    check(not pending, f"{len(pending)} futures pending after close()")
+    failed = [(r[1], r[2], repr(r[4].exception())) for r in records
+              if r[4].exception() is not None]
+    check(not failed, f"served futures resolved to errors: {failed[:4]}")
+
+    # cold per-query contraction against the served batch (the launcher's
+    # speedup line); these launches do not count
+    base = np.repeat(hot["main"][:1], SERVE_BASELINE, axis=0)
+    base[:, -1] = np.random.default_rng(SEED).integers(
+        0, 2, (SERVE_BASELINE, GRID))
+    t0 = time.perf_counter()
+    cold_vals = [complex(amplitude(state, b, option)) for b in base]
+    torch.cuda.synchronize()
+    cold = (time.perf_counter() - t0) / SERVE_BASELINE
+    t0 = time.perf_counter()
+    served_vals = [complex(v) for v in engine.amplitude_batch("main", base)]
+    torch.cuda.synchronize()
+    served = (time.perf_counter() - t0) / SERVE_BASELINE
+
+    # the same unlikely bitstrings per query in c128 (dense by its dtype):
+    # which c64 value, served or per-query, keeps the amplitude
+    c128_vals = [complex(amplitude(main["c128_state"], b, option))
+                 for b in base]
+
+    # served against per-query: the main path's four amplitudes, same
+    # option and key
+    per_query = main["amplitudes_c64_kernel"]
+    gap_main = max(rel(complex(v), p) for v, p in zip(warm["main"], per_query))
+    # arrival order changes no value: the threaded results against one
+    # synchronous batch of the same bits
+    mismatched = 0
+    for name in names:
+        recs = [r for r in records if r[1] == "amp" and r[2] == name]
+        sync = engine.amplitude_batch(name, np.stack([r[3] for r in recs]))
+        mismatched += sum(complex(r[4].result()) != complex(v)
+                          for r, v in zip(recs, sync))
+    # a served expectation against expectation_from_envs on fresh row
+    # environments of the same key
+    obs_gap = {}
+    for name in names:
+        served_e = {complex(r[4].result()) for r in records
+                    if r[1] == "obs" and r[2] == name}
+        top, bottom = row_environments(
+            states[name], option, TorchKey(DEFAULT_EXPECTATION_KEY_SEED))
+        want = complex(expectation_from_envs(states[name], obs, top, bottom))
+        obs_gap[name] = {"served": [_as_pair(v) for v in served_e],
+                         "direct": _as_pair(want),
+                         "bit_identical": served_e == {want}}
+    line = {"phase": "serving", "part": "traffic", "dtype": "complex64",
+            "mode": "kernel", "chi": CHI, "clients": SERVE_CLIENTS,
+            "queries_per_client": SERVE_QUERIES, "window_ms": SERVE_WINDOW_MS,
+            "warm_s": warm_s, **rounds,
+            "cold_ms": cold * 1e3, "served_ms": served * 1e3,
+            "speedup": cold / served,
+            "served_vs_per_query_main_path": gap_main,
+            # unlikely final rows: a per-query c64 value may have collapsed
+            "baseline_abs": {"served": [abs(v) for v in served_vals],
+                             "per_query": [abs(v) for v in cold_vals],
+                             "per_query_c128": [abs(v) for v in c128_vals]},
+            "baseline_vs_c128": {
+                "served": [rel(v, w) for v, w in zip(served_vals, c128_vals)],
+                "per_query": [rel(v, w) for v, w in zip(cold_vals,
+                                                        c128_vals)]},
+            "threaded_vs_sync_mismatches": mismatched,
+            "expectation": obs_gap,
+            "distinct_prefixes": {k: len(v) for k, v in prefixes.items()},
+            "stats": {k: v for k, v in stats.items() if k != "per_state"},
+            "per_state": stats["per_state"], "launches": launches,
+            "max_memory_allocated": peak}
+    emit(line)
+    # only the likely bitstrings are held: a per-query c64 amplitude of an
+    # unlikely final row can collapse in its truncated last absorption,
+    # which the exact close does not have (baseline_abs shows both)
+    check(gap_main <= TOL_FULL,
+          f"served vs per-query: {gap_main} > {TOL_FULL}")
+    check(mismatched == 0, f"{mismatched} threaded amplitudes differ from "
+          f"a synchronous batch of the same bits")
+    for name, g in obs_gap.items():
+        check(g["bit_identical"], f"served expectation of {name}: {g}")
+    for name, ps in stats["per_state"].items():
+        check(ps["prefix_misses"] <= len(prefixes[name]),
+              f"{name}: {ps['prefix_misses']} prefix misses for "
+              f"{len(prefixes[name])} prefixes")
+        check(ps["obs_env_builds"] == 1, f"{name}: obs_env_builds {ps}")
+    n_prefixes = sum(len(v) for v in prefixes.values())
+    check(stats["rows_absorbed"] <= (GRID - 2) * n_prefixes,
+          f"rows_absorbed {stats['rows_absorbed']} for {n_prefixes} prefixes")
+    return line, launches
+
+
+def serving_tight(torch, np):
+    """(b) c128 dense on the card: served and ``bmps.amplitudes`` against
+    per-query amplitudes at 1e-10 on the launcher's default state, then the
+    launcher itself at the verify skill's recipe."""
+    from repro_torch.core import bmps as B
+    from repro_torch.core.serving import ServingEngine
+    from repro_torch.launch import serve
+
+    state = serve.build_states(1, SERVE_TIGHT_GRID, SERVE_TIGHT_LAYERS,
+                               seed=SERVE_TIGHT_SEED, device="cuda")[0]
+    option = B.BMPS(SERVE_TIGHT_CHI)
+    rng = np.random.default_rng(SEED)
+    g = SERVE_TIGHT_GRID
+    bits = np.repeat(rng.integers(0, 2, (4, g - 1, g)), 4, axis=0)
+    bits = np.concatenate([bits, rng.integers(0, 2, (16, 1, g))], axis=1)
+    direct = torch.stack([B.amplitude(state, b, option) for b in bits])
+    with ServingEngine(start=False) as engine:
+        engine.register_state("rqc", state, option)
+        served = engine.amplitude_batch("rqc", bits)
+    batched = B.amplitudes(state, bits, option)
+    gaps = {"served": rel_gap(torch, served, direct),
+            "amplitudes": rel_gap(torch, batched, direct)}
+    t0 = time.perf_counter()
+    cli = serve.main(list(SERVE_CLI))
+    cli_s = time.perf_counter() - t0
+    line = {"phase": "serving", "part": "tight_c128", "grid": g,
+            "layers": SERVE_TIGHT_LAYERS, "chi": SERVE_TIGHT_CHI,
+            "svd": "direct", "max_bond": state.max_bond(),
+            "queries": len(bits), "rel_err_vs_per_query": gaps,
+            "tol": TOL_SERVE_C128, "launcher": {
+                "argv": list(SERVE_CLI), "seconds": cli_s,
+                "per_state": cli["per_state"],
+                **{k: v for k, v in cli.items() if k != "per_state"}}}
+    emit(line)
+    for k, v in gaps.items():
+        check(v <= TOL_SERVE_C128, f"c128 {k} vs per-query: {gaps}")
+    for name, ps in cli["per_state"].items():
+        check(ps["prefix_misses"] <= SERVE_CLI_HOT_PREFIXES,
+              f"launcher {name}: {ps}")
+    return line
+
+
+def serving_variational(torch, np, state, main):
+    """(c) The variational engine: the reference's cases in c128, then the
+    8x8 main-path norm in c64 kernel mode against the main path's c128
+    zip-up norm.  Returns the line and the launches of the 8x8 norm."""
+    from repro_torch.core import bmps as B
+    from repro_torch.core.keys import TorchKey
+    from repro_torch.core.peps import random_onelayer
+    from repro_torch.kernels import dispatch
+
+    def onelayer(grid, bond, seed):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        return random_onelayer(grid, grid, bond, gen, device="cuda")
+
+    prev = dispatch.set_kernel_backend("dense")
+    try:
+        rows = onelayer(3, 3, SEED)
+        exact = complex(B.contract_exact_onelayer(rows))
+        full = complex(B.contract_onelayer(
+            rows, B.BMPS(27, engine="variational"), key=TorchKey(3)))
+        rows = onelayer(4, 3, SEED + 1)
+        exact4 = complex(B.contract_exact_onelayer(rows))
+        err_zip = rel(complex(B.contract_onelayer(rows, B.BMPS(8),
+                                                  key=TorchKey(17))), exact4)
+        err_var = rel(complex(B.contract_onelayer(
+            rows, B.BMPS(8, engine="variational"), key=TorchKey(17))), exact4)
+    finally:
+        dispatch.set_kernel_backend(prev)
+
+    option = B.BMPS.randomized(CHI, niter=4, oversample=8,
+                               engine="variational")
+    prev = dispatch.set_kernel_backend("kernel")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_peps_launches()
+        t0 = time.perf_counter()
+        norm = complex(B.norm_squared(state, option))
+        torch.cuda.synchronize()
+        var_s = time.perf_counter() - t0
+        launches = peps_launches()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        dispatch.set_kernel_backend(prev)
+    c128 = main["norm_c128_dense"]
+    line = {"phase": "serving", "part": "variational",
+            "full_chi_3x3_vs_exact": rel(full, exact),
+            "chi8_4x4_vs_exact": {"zipup": err_zip, "variational": err_var},
+            "main_norm": {"variational_c64_kernel": _as_pair(norm),
+                          "zipup_c64_kernel": _as_pair(main["norm_c64_kernel"]),
+                          "zipup_c128_dense": _as_pair(c128),
+                          "variational_vs_c128": rel(norm, c128),
+                          "zipup_c64_vs_c128": rel(main["norm_c64_kernel"],
+                                                   c128),
+                          "variational_s": var_s,
+                          "zipup_c64_kernel_s": main["norm_c64_kernel_s"],
+                          "max_memory_allocated": peak},
+            "sweeps": 2, "launches": launches, "tol_anchor": TOL_ANCHOR}
+    emit(line)
+    check(rel(full, exact) <= VAR_EXACT_TOL,
+          f"variational at full chi vs exact: {rel(full, exact)}")
+    check(err_var < err_zip, f"variational {err_var} not below zip-up "
+          f"{err_zip} at chi 8")
+    check(math.isfinite(norm.real) and rel(norm, c128) <= TOL_ANCHOR,
+          f"8x8 variational norm vs c128: {rel(norm, c128)}")
+    return line, launches
+
+
+def serving_pair_merge(torch, state):
+    """(d) ``_init_twolayer_boundary`` on row 0 of the main-path state:
+    kernel mode (one ``zipup_pair`` launch a column through the pair_merge
+    site) against dense."""
+    from repro_torch.core.engines.zipup import _init_twolayer_boundary
+    from repro_torch.kernels import dispatch
+
+    row = state.sites[0]
+    prev = dispatch.set_kernel_backend("kernel")
+    try:
+        reset_peps_launches()
+        calls = dispatch.dispatch_stats()["kernel_pair_merge_calls"]
+        got = _init_twolayer_boundary(row, row)
+        torch.cuda.synchronize()
+        launches = peps_launches()
+        calls = dispatch.dispatch_stats()["kernel_pair_merge_calls"] - calls
+    finally:
+        dispatch.set_kernel_backend(prev)
+    with dispatch.forced_dense():
+        want = _init_twolayer_boundary(row, row)
+    errs = [rel_gap(torch, g, w) for g, w in zip(got, want)]
+    line = {"phase": "serving", "part": "pair_merge", "columns": len(row),
+            "shapes": [list(t.shape) for t in got], "site_calls": calls,
+            "launches": launches, "rel_err": max(errs), "tol": TOL_F32}
+    emit(line)
+    check(calls == len(row) and launches["zipup_pair"] == len(row),
+          f"pair merge: {calls} site calls, {launches} for {len(row)} columns")
+    check(max(errs) <= TOL_F32, f"pair merge kernel vs dense: {errs}")
+    return launches
+
+
+def phase_serving(torch, np, state, main):
+    """PEPS items 1, 5 and 8 on the card: served amplitudes and
+    observables at full size, a tight c128 case and the launcher, the
+    variational engine, and the pair merge on a path.  Returns the
+    kernels' launches over the served traffic, the variational 8x8 norm
+    and the pair merge, and the phase's headline numbers."""
+    from repro_torch.kernels import dispatch
+
+    t_phase = time.perf_counter()
+    prev = dispatch.set_kernel_backend("kernel")
+    try:
+        traffic, l_traffic = serving_traffic(torch, np, state, main)
+    finally:
+        dispatch.set_kernel_backend(prev)
+    tight = serving_tight(torch, np)
+    var, l_var = serving_variational(torch, np, state, main)
+    l_pair = serving_pair_merge(torch, state)
+    launches = {k: l_traffic[k] + l_var[k] + l_pair[k] for k in l_traffic}
+    for k in ("gram_complex", "tall_apply_complex", "zipup_pair",
+              "zipup_chain"):
+        check(launches[k] > 0, f"{k} never launched in the serving phase")
+    summary = {
+        "seconds": time.perf_counter() - t_phase,
+        "q_per_s": {k: traffic[k]["q_per_s"] for k in ("first", "steady")},
+        "amplitude_p50_ms": {k: traffic[k]["amplitude_latency_ms"]["p50"]
+                             for k in ("first", "steady")},
+        "speedup": traffic["speedup"],
+        "served_vs_per_query": traffic["served_vs_per_query_main_path"],
+        "c128_served_vs_per_query": tight["rel_err_vs_per_query"]["served"],
+        "variational_vs_c128": var["main_norm"]["variational_vs_c128"]}
+    emit({"phase": "serving", "launches": launches, **summary})
+    return launches, summary
 
 
 # ---------------------------------------------------------------------------
@@ -2704,9 +3130,11 @@ def main() -> int:
         launches, state, main_info = timed("main_path", phase_main_path,
                                            torch, np)
         timed("profile", phase_profile, torch, state)
+        serving, serving_summary = timed("serving", phase_serving, torch, np,
+                                         state, main_info)
         del state
         torch.cuda.empty_cache()
-        by_path = {"peps": dict(launches),
+        by_path = {"peps": dict(launches), "serving": serving,
                    "ite": timed("ite", phase_ite, torch, np)}
         torch.cuda.empty_cache()
         by_path["vqe"], vqe_summary = timed("vqe", phase_vqe, torch, np)
@@ -2763,8 +3191,8 @@ def main() -> int:
             kernels[-1]["also_replaces"] = [
                 "src/repro/kernels/zipup_block.py:101"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
-          "phase_seconds": phase_s, "vqe": vqe_summary,
-          "robustness": robustness_summary})
+          "phase_seconds": phase_s, "serving": serving_summary,
+          "vqe": vqe_summary, "robustness": robustness_summary})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,11 @@ Counterpart of ``repro.core.bmps``:
   with ``DirectSVD``, IBMPS with ``RandomizedSVD``);
 * ``contract_twolayer`` — <bra|ket> keeping the two layers implicit
   (two-layer IBMPS when randomized);
-* ``contract_exact_onelayer`` — no-truncation reference for small grids.
+* ``contract_exact_onelayer`` — no-truncation reference for small grids;
+* ``amplitudes`` — batched <x|psi>: one boundary sweep per shared row
+  prefix, then one exact batched close of the final row
+  (:func:`final_row_amplitudes`), the primitives of
+  :mod:`repro_torch.core.serving`.
 
 Boundary tensors are ``(l, d, r)`` (one layer) and ``(l, d_bra, d_ket, r)``
 (two layers).  Row absorption is the job of the option's boundary engine
@@ -133,6 +137,108 @@ def amplitude(state, bits, option: BMPS, key=None) -> torch.Tensor:
     rows = [[state.sites[i][j][int(bits[i, j])] for j in range(state.ncol)]
             for i in range(state.nrow)]
     return scale_by(contract_onelayer(rows, option, key), state.log_scale)
+
+
+# ---------------------------------------------------------------------------
+# Batched amplitudes: shared boundary prefix + batched final-row close
+# ---------------------------------------------------------------------------
+#
+# The one-layer <x|psi> network depends on the bits of row i only from the
+# absorption of row i onwards, so queries that share the bits of rows
+# 0..nrow-2 share the whole boundary sweep.  The final row's down bonds
+# have dimension 1, so absorbing it never truncates: the close equals the
+# exact transfer-matrix product of the boundary MPS with the selected
+# final-row tensors, a chain of small einsums batched over the queries.
+
+#: Queries per batched close.  A batched GEMM's rounding of one row depends
+#: on the batch size, though not on the row's position (H100,
+#: ``tools/serve_close_widths.py``: one query closed at B = 1, 2, 4 to 32
+#: and 64 rounds four ways; at any of 64 positions of a 64-wide batch, one
+#: way), so every close runs at this one width and a query's value does not
+#: depend on the queries it was batched with.
+CLOSE_WIDTH = 64
+
+
+def final_row_amplitudes(env, row_sites, bits, log_scale=0.0) -> torch.Tensor:
+    """Batched exact close of a boundary MPS against final-row selections.
+
+    ``env`` is the one-layer boundary MPS after absorbing rows
+    ``0..nrow-2`` (tensors ``(l, d, r)``); ``row_sites`` the final row's
+    ``(p, u, l, d, r)`` site tensors (down bonds dim 1); ``bits`` an integer
+    array or tensor ``(B, ncol)`` of final-row bit selections.  Returns the
+    ``(B,)`` amplitudes on the sites' device, including
+    ``exp(log_scale)``.  The queries are closed in tiles of
+    :data:`CLOSE_WIDTH`, the last one padded by repeating its first query,
+    through one callable per shape signature
+    (:func:`repro_torch.core.planner.fused_fn`, tag ``"serve_close"``)."""
+    from repro_torch.core import planner
+    t0 = row_sites[0]
+    if not torch.is_tensor(bits):
+        bits = np.ascontiguousarray(bits)
+    bits = torch.as_tensor(bits, dtype=torch.int64, device=t0.device)
+    if bits.dim() != 2:
+        raise ValueError(f"bits must be (B, ncol), got shape {tuple(bits.shape)}")
+    for t in row_sites:
+        if t.shape[3] != 1:
+            raise ValueError(
+                "final_row_amplitudes needs a bottom row (down bonds dim 1); "
+                f"got down bond {t.shape[3]}")
+    B, W = int(bits.shape[0]), CLOSE_WIDTH
+    if B == 0:
+        return torch.empty(0, dtype=t0.dtype, device=t0.device)
+    ncol = len(env)
+    dtype = t0.dtype
+    sig = ("serve_close", ncol, W,
+           tuple(tuple(t.shape) for t in env),
+           tuple(tuple(t.shape) for t in row_sites),
+           str(dtype).replace("torch.", ""), t0.device.type)
+
+    def build():
+        def run(env_ts, site_ts, bits_arr, log_scale_arr):
+            acc = torch.ones((W, 1, 1), dtype=dtype, device=t0.device)
+            for j in range(ncol):
+                sel = site_ts[j].index_select(0, bits_arr[:, j])
+                sel = sel[:, :, :, 0, :]  # (W, u, l, r): squeeze the down bond
+                # acc (x=batch, b=env bond, c=row bond) x env_j (b, u, r')
+                # x sel (x, u, c, s) -> (x, r', s)
+                acc = planner.cached_einsum("xbc,bur,xucs->xrs",
+                                            acc, env_ts[j], sel)
+            return scale_by(acc.reshape(W), log_scale_arr)
+        return run
+
+    fn = planner.fused_fn("serve_close", sig, build)
+    if B % W:   # pad the last tile with its first query
+        bits = torch.cat([bits, bits[B - B % W].expand(W - B % W, -1)])
+    vals = [fn(list(env), list(row_sites), tile, log_scale)
+            for tile in bits.split(W)]
+    return (vals[0] if len(vals) == 1 else torch.cat(vals))[:B]
+
+
+def amplitudes(state, bits_batch, option: BMPS, key=None) -> torch.Tensor:
+    """Batched <x|psi>: one boundary sweep per shared row prefix.
+
+    ``bits_batch`` is ``(B, nrow*ncol)`` or ``(B, nrow, ncol)``.  Queries
+    are grouped by the bits of rows ``0..nrow-2``; each group pays one
+    prefix sweep (the keys, engine and einsumsvd sequence of the per-query
+    :func:`amplitude`), then one batched exact close of the final row
+    (:func:`final_row_amplitudes`).  :mod:`repro_torch.core.serving` adds
+    the prefix cache, bucketing and the request queue."""
+    from repro_torch.core.environments import onelayer_prefix_environment
+    _check_option(option)
+    bits_arr = np.asarray(bits_batch)
+    B = bits_arr.shape[0]
+    bits_arr = bits_arr.reshape(B, state.nrow, state.ncol)
+    groups: dict = {}
+    for idx in range(B):
+        prefix = tuple(tuple(int(b) for b in row) for row in bits_arr[idx][:-1])
+        groups.setdefault(prefix, []).append(idx)
+    vals = torch.empty(B, dtype=state.dtype, device=state.device)
+    for prefix, idxs in groups.items():
+        env = onelayer_prefix_environment(state, prefix, option, key)
+        out = final_row_amplitudes(env, state.sites[-1], bits_arr[idxs, -1, :],
+                                   state.log_scale)
+        vals[torch.as_tensor(idxs, device=state.device)] = out
+    return vals
 
 
 def norm_squared(state, option: BMPS, key=None) -> torch.Tensor:

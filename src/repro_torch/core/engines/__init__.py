@@ -5,8 +5,17 @@ An engine supplies **row absorption** for the one- and two-layer networks
 plus the **final-scalar** closings.  Boundary-MPS layouts are fixed across
 engines — one-layer ``(l, d, r)``, two-layer ``(l, d_bra, d_ket, r)``.
 Absorption consumes exactly one key per row and derives per-column keys
-with ``key.split(ncol)``.  The port registers the zip-up engine; the
-variational engine waits for its slice.
+with ``key.split(ncol)``.  Two engines are built in, registered on first
+lookup:
+
+* ``"zipup"`` (:mod:`repro_torch.core.engines.zipup`) — the paper's greedy
+  zip-up, one einsumsvd per column (the default);
+* ``"variational"`` (:mod:`repro_torch.core.engines.variational`) — an
+  ALS-fitted fixed-chi boundary MPS seeded by a zip-up pass.
+
+``supports_blocks`` says whether an engine's row absorption splits into
+column blocks with one carry tensor (zip-up does; the variational fit is
+row-global), which a column-sharded sweep needs.
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ class BoundaryEngine:
     """Base class / protocol for boundary-absorption engines."""
 
     name: str = "abstract"
+    supports_blocks: bool = False
 
     def absorb_onelayer(self, svec, row, chi, svd, key) -> List:
         """Absorb an (u,l,d,r)-site MPO row into the one-layer boundary."""
@@ -46,8 +56,12 @@ def register_engine(engine: BoundaryEngine) -> BoundaryEngine:
 
 
 def _ensure_builtin() -> None:
+    # the built-in engines import this module: register them on first
+    # lookup to keep the import order acyclic
     if "zipup" not in _REGISTRY:
         from repro_torch.core.engines import zipup  # noqa: F401
+    if "variational" not in _REGISTRY:
+        from repro_torch.core.engines import variational  # noqa: F401
 
 
 def registered_engines() -> Dict[str, BoundaryEngine]:

@@ -18,6 +18,7 @@ from repro_torch.core.keys import key_or_default
 from repro_torch.kernels.zipup_block import (
     first_column_onelayer,
     first_column_twolayer,
+    pair_merge,
 )
 
 
@@ -123,6 +124,20 @@ def _zipup_row_twolayer(svec, bra_row, ket_row, chi, svd,
     return out
 
 
+def _init_twolayer_boundary(bra_row, ket_row) -> List[torch.Tensor]:
+    """First-row boundary: merge only the horizontal pair bonds,
+    ``(p,1,l1,d1,r1)* x (p,1,l2,d2,r2) -> (l1 l2, d1, d2, r1 r2)``
+    (kernel-dispatched site ``"pair_merge"``: in kernel mode one launch
+    whose output is contiguous, so the reshape is a view).  No contraction
+    path calls it; the two-layer sweeps start from a trivial boundary."""
+    out = []
+    for tb, tk in zip(bra_row, ket_row):
+        pair = pair_merge(tb.conj(), tk)
+        s = pair.shape
+        out.append(pair.reshape(s[0] * s[1], s[2], s[3], s[4] * s[5]))
+    return out
+
+
 def _twolayer_final_scalar(svec: List[torch.Tensor]) -> torch.Tensor:
     acc = torch.ones((1,), dtype=svec[0].dtype, device=svec[0].device)
     for t in svec:
@@ -136,8 +151,11 @@ def trivial_twolayer_boundary(ncol: int, dtype, device) -> List[torch.Tensor]:
 
 
 class ZipUpEngine(BoundaryEngine):
-    """Row absorption by zip-up truncation (einsumsvd per column)."""
+    """Row absorption by zip-up truncation (einsumsvd per column).  Its
+    row absorption is composable column blocks with one carry tensor
+    (:func:`zipup_block`), hence ``supports_blocks``."""
     name = "zipup"
+    supports_blocks = True
 
     def absorb_onelayer(self, svec, row, chi, svd, key):
         return _zipup_row(svec, row, chi, svd, key)

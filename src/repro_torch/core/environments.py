@@ -5,7 +5,10 @@ bottom-up) produce ``top[i]`` / ``bottom[i]`` for all ``i``; each local-term
 expectation then only costs a short strip contraction.  Environment MPS
 tensors are in two-layer boundary layout ``(l, d_bra, d_ket, r)``; bottom
 environments face upward.  :func:`strip_boundary` gives the full update its
-left/right neighborhood environments from the cached rows.
+left/right neighborhood environments from the cached rows.  The one-layer
+prefix environments of the <x|psi> amplitude network
+(:func:`onelayer_prefix_environment`) are the serving engine's amplitude
+prefixes.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 from repro_torch.core import planner
 from repro_torch.core.bmps import BMPS, _check_option
 from repro_torch.core.engines import get_engine
-from repro_torch.core.engines.zipup import trivial_twolayer_boundary
+from repro_torch.core.engines.zipup import _keys, trivial_twolayer_boundary
 from repro_torch.core.keys import key_or_default
 
 #: Seed of the key used when an environment sweep is called with
@@ -52,6 +55,53 @@ def top_environments(bra_rows, ket_rows, option: BMPS,
                                    option.chi, option.svd, keys[i])
         envs.append(svec)
     return envs
+
+
+# ---------------------------------------------------------------------------
+# One-layer prefix environments (the serving engine's amplitude prefixes)
+# ---------------------------------------------------------------------------
+#
+# The <x|psi> network is one-layer: site (i, j) is the PEPS tensor projected
+# on bit x[i, j].  Its top boundary environments depend only on the bits of
+# the rows absorbed so far, so every query with the same bit prefix shares
+# them.
+
+def onelayer_top_environments(rows, option: BMPS, key=None,
+                              nrow_total: int = None) -> List[List[torch.Tensor]]:
+    """Boundary-MPS levels of a one-layer (u,l,d,r) grid, top-down:
+    ``env[k]`` is the boundary MPS after absorbing rows ``0..k`` (tensors
+    ``(l, d, r)``).  Row ``i`` takes ``keys[i]`` of one
+    ``_keys(key, max(nrow, 2))`` split, as in
+    :func:`repro_torch.core.bmps.contract_onelayer`, so closing ``env[-1]``
+    repeats the per-query contraction bit for bit.  ``nrow_total`` sets
+    the split length when ``rows`` is the prefix of a taller grid."""
+    _check_option(option)
+    eng = get_engine(option.engine)
+    nrow = nrow_total if nrow_total is not None else len(rows)
+    keys = _keys(key, max(nrow, 2))
+    svec = [t.reshape(t.shape[1], t.shape[2], t.shape[3]) for t in rows[0]]
+    envs = [svec]
+    for i in range(1, len(rows)):
+        svec = eng.absorb_onelayer(svec, rows[i], option.chi, option.svd,
+                                   keys[i])
+        envs.append(svec)
+    return envs
+
+
+def onelayer_prefix_environment(state, prefix_bits, option: BMPS,
+                                key=None) -> List[torch.Tensor]:
+    """Boundary MPS of rows ``0..len(prefix_bits)-1`` of <x|psi>
+    (``prefix_bits``: per-row bit sequences, typically rows ``0..nrow-2``).
+    An empty prefix (a one-row state) gives the trivial boundary: ``ncol``
+    ``(1, 1, 1)`` ones on the state's device, in its dtype."""
+    ncol = state.ncol
+    if len(prefix_bits) == 0:
+        return [torch.ones((1, 1, 1), dtype=state.dtype, device=state.device)
+                for _ in range(ncol)]
+    rows = [[state.sites[i][j][int(prefix_bits[i][j])] for j in range(ncol)]
+            for i in range(len(prefix_bits))]
+    return onelayer_top_environments(rows, option, key,
+                                     nrow_total=state.nrow)[-1]
 
 
 # ---------------------------------------------------------------------------

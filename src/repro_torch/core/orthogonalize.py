@@ -39,6 +39,36 @@ def _eps_for(dtype) -> float:
     return _EPS.get(dtype, 1e-6)
 
 
+# The reference's first names for the kernel-dispatch controls, kept as
+# aliases of the registry-wide ones.  They take the port's mode names and the
+# reference's "pallas", which means "kernel".
+_GRAM_MODES = {"auto": "auto", "kernel": "kernel", "pallas": "kernel",
+               "dense": "dense"}
+
+
+def set_gram_backend(mode: str) -> str:
+    """Select the global kernel mode: ``'auto'``, ``'kernel'`` (or the
+    reference's ``'pallas'``) or ``'dense'``.  Returns the previous mode.
+    Alias of :func:`repro_torch.kernels.dispatch.set_kernel_backend`."""
+    if mode not in _GRAM_MODES:
+        raise ValueError(f"bad gram backend {mode!r}")
+    return _dispatch.set_kernel_backend(_GRAM_MODES[mode])
+
+
+def gram_backend() -> str:
+    """The global kernel mode."""
+    return _dispatch.kernel_backend()
+
+
+def gram_dispatch_stats() -> dict:
+    """Per-site kernel/dense call counters (all sites, not only the Gram)."""
+    return _dispatch.dispatch_stats()
+
+
+def reset_gram_dispatch_stats() -> None:
+    _dispatch.reset_dispatch_stats()
+
+
 def _gram_dense(a: torch.Tensor, big_axes, nbig: int, nsmall: int):
     g = torch.tensordot(a.conj(), a, dims=(list(big_axes), list(big_axes)))
     return g.reshape(nsmall, nsmall)

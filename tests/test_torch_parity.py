@@ -150,6 +150,6 @@ def test_unknown_options_raise_type_error():
     with pytest.raises(TypeError, match="unknown contraction option"):
         TB.norm_squared(state, object())
     with pytest.raises(TypeError, match="unknown boundary engine"):
-        TB.BMPS(4, engine="variational")
+        TB.BMPS(4, engine="zip-up")
     with pytest.raises(TypeError, match="precision"):
         TB.BMPS(4, precision="bogus")
