@@ -58,15 +58,22 @@ complex64 full update (clean guarded runs bit for bit the unguarded ones,
 six armed faults, the reference's ALS regulariser under a guard), and
 checkpoint/resume of ITE (also after a torn write) and of the VQE
 optimizers, each resumed run against a fresh one.  Then
-it serves
-one model of each ported LM family at full width and depth (random bf16
-weights from ``SEED``), Zamba2-2.7B (hybrid), Qwen3-4B (dense, GQA 32/8 at
-head dimension 128) and Mamba2-2.7B (ssm, SSD state 128): a 4 x 2,048
-token prefill through the flash-attention and SSD-scan kernels, 64 greedy
-decode steps, the same prefill through the plain versions, a
-prefill-then-decode continuation check, and the same weights in f32: kernel
-vs plain prefill, the continuation check, and the bf16 model's distance
-from its f32 self, which sets the bounds of the bf16 checks.  Each phase
+it serves one model of each LM family at full width (random bf16 weights
+from ``SEED``), Zamba2-2.7B (hybrid), Qwen3-4B (dense, GQA 32/8 at head
+dimension 128), Mamba2-2.7B (ssm, SSD state 128), Qwen3-30B-A3B (moe, 128
+experts, top 8, GQA 32/4) and Qwen2-VL-72B (vlm, M-RoPE positions of a
+text-image-text prompt; its published widths at 16 of its 80 layers): a
+4 x 2,048 token prefill through the flash-attention and SSD-scan kernels,
+64 greedy decode steps, the same prefill through the plain versions, a
+prefill-then-decode continuation check (for the moe model where no
+assignment drops, on a shorter prompt), and the same bf16 weights read by
+f32 activations: kernel vs plain prefill, the continuation check, and the
+bf16 model's distance from its f32 self, which sets the bounds of the bf16
+checks.  Last, Whisper-large-v3 (encdec) at full width and depth: 4 x 1,500
+stub frame embeddings encoded through the flash kernel, the cross K/V of
+every decoder layer, the teacher-forced decoder over 64 tokens and as many
+decode steps (cross-attention through the kernel), 64 greedy steps, held
+the same ways.  Each phase
 prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
@@ -239,12 +246,31 @@ SERVE_CLI_HOT_PREFIXES = 4  # the launcher's default --hot-prefixes
 # one-layer D=3, chi 27, 1e-8), and it beats zip-up at chi 8 (4x4 D=3).
 VAR_EXACT_TOL = 1e-8
 
-# Served at full width and depth (lm_serve phases): one model of each
-# ported family, hybrid, dense and ssm
-LM_ARCHS = ("zamba2-2.7b", "qwen3-4b", "mamba2-2.7b")
+# Served at full width (lm_serve phases): a model of each family, at full
+# depth where one card holds it.  Qwen2-VL-72B's 80 layers take 145 GB in
+# bf16: it runs its published widths with 16 layers (about 33 GB).
+LM_ARCHS = ("zamba2-2.7b", "qwen3-4b", "mamba2-2.7b", "qwen3-moe-30b-a3b",
+            "qwen2-vl-72b")
+LM_LAYERS = {"qwen2-vl-72b": 16}
+ENCDEC_ARCH = "whisper-large-v3"
 LM_BATCH = 4
 LM_PROMPT = 2048
 LM_DECODE = 64
+# Qwen2-VL's M-RoPE layout (arXiv:2409.12191): text, an image grid whose
+# tokens share one temporal position and take their row and column, then
+# text from the largest position + 1
+VL_TEXT = 256
+VL_GRID = 32
+# The moe continuation check runs where nothing drops, at capacity factor
+# n_experts / top_k, on a 4 x 256-token prompt: at 4 x 2,048 tokens that
+# capacity's (E + 1, 8,192, D) buffers do not fit beside Qwen3-30B-A3B's
+# 61 GB of weights in f32.
+MOE_CHECK_PROMPT = 256
+# Whisper: the teacher-forced decoder over 64 tokens, the same tokens as
+# 64 decode steps, then LM_DECODE greedy steps, in a cache of Whisper's
+# 448-token text context
+ENC_SEQ = 64
+ENC_CONTEXT = 448
 
 # Published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, bf16 on the tensor cores (dense), and HBM3 bandwidth.
@@ -255,6 +281,15 @@ PEAK_BYTES = 3.35e12
 FLUSH_BYTES = 128 * 2**20
 # Cycles the card sleeps before each cold-L2 call (about 1 ms at 1.98 GHz).
 SLEEP_CYCLES = 2_000_000
+# Late in a full run on the H100 a profiled Whisper encode's trace missed
+# all the kernels of one or two of its 32 layers (in four runs; waits of
+# 0.1 s before and after the work did not help).  Its trace therefore
+# starts with TRACE_PREROLL_KERNELS small kernels of its own, whose loss
+# costs nothing, and is taken again while incomplete; every LM trace waits
+# TRACE_MARGIN_S at both ends.
+TRACE_PREROLL_KERNELS = 1000
+TRACE_MARGIN_S = 0.1
+TRACE_ATTEMPTS = 3
 
 TOL_F32 = 1e-5           # kernel vs plain, relative Frobenius, f32
 TOL_BF16 = 2e-2          # bf16 multiplicands vs f32 (kernel_bf16_gemm budget)
@@ -299,6 +334,16 @@ TOL_LM_BF16_FLOOR = 1e-1
 # side lies about one floor from the f32 logits, so by the triangle
 # inequality they differ by at most the sum.
 LM_BF16_FLOORS = 2.0
+# The floor's own bound holds the three models it was set from (their
+# floors read 4.7e-2 to 6.4e-2).  Qwen2-VL-72B's floor reads 0.107 at 16
+# layers, alike in its four rows, and grows with depth as rounding
+# accumulates (tools/lm_floor_depth.py: 4.8e-2 at 4 layers, 6.6e-2 at 8;
+# the hidden state 2.3e-2 off after the first layer, 0.103 after the
+# 16th): its attention has no qk-norm, and at d_model 8192 its scores are
+# about three times Qwen3-4B's, so a bf16 ulp of q or k moves P further.
+# For the later models the floor still sets the bf16 bounds, capped at
+# TOL_LM_BF16_FLOOR.
+LM_FLOOR_HELD = ("zamba2-2.7b", "qwen3-4b", "mamba2-2.7b")
 # prefill(t0..t2046) + decode(t2047) vs prefill(t0..t2047) in f32 at full
 # width and depth: allclose with rtol = atol = 2e-2, the contract of
 # tests/test_models_smoke.py
@@ -705,6 +750,26 @@ def t1_flip_tol(xs):
     return max(TOL_F32, 2.0 ** -8 * (4.0 / (b * F * g * p * c * h * k)) ** 0.5)
 
 
+def warm_profiler(torch, attempts=5) -> int:
+    """Take throwaway traces of a few elementwise kernels until one shows a
+    device event (at most ``attempts``), before any trace that is checked:
+    the first traces of a run have come back without device events on the
+    H100 (three in a row, once).  Returns
+    the number of traces taken, 0 if none showed a device event."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(1 << 20, device="cuda")
+    for i in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                x.mul_(1.0)
+            torch.cuda.synchronize()
+        if any(str(evt.device_type).endswith("CUDA")
+               for evt in prof.key_averages()):
+            return i + 1
+    return 0
+
+
 def profiled_kernels(torch, fn, calls, attempts=3):
     """Device kernels of ``calls`` calls of ``fn`` under torch.profiler:
     {name: (count, mean device ms)}.  A trace with no device event at all
@@ -983,29 +1048,39 @@ def phase_lm_kernels(torch):
             if dtype == torch.bfloat16:
                 within_witness(line, q, k, v, want, causal)
             emit(line)
-    # qwen3-4b's shape, timed (32 query heads over 8 KV heads, d = 128),
-    # and smollm-360m's, held only (15 over 5: GQA group 3, an odd head
-    # count), in the model's (B, S, H, D) storage
-    for hq, hkv, d, timed in ((32, 8, 128, True), (15, 5, 64, False)):
-        b, s = LM_BATCH, LM_PROMPT
+    # GQA and cross shapes in the model's (B, S, H, D) storage: qwen3-4b's
+    # (32 query heads over 8 KV heads, d = 128) and qwen3-moe-30b-a3b's (32
+    # over 4: GQA group 8), timed; smollm-360m's (15 over 5: GQA group 3,
+    # an odd head count), held only; whisper-large-v3's encoder (20 heads,
+    # d = 64, 1,500 frames, full attention, the last 64-key tile ragged),
+    # timed; and its cross-attention of 64 decoder tokens and of one token
+    # over 1,500 frames, held only
+    for b, hq, hkv, s, sk, d, causal, timed in (
+            (LM_BATCH, 32, 8, LM_PROMPT, LM_PROMPT, 128, True, True),
+            (LM_BATCH, 15, 5, LM_PROMPT, LM_PROMPT, 64, True, False),
+            (LM_BATCH, 32, 4, LM_PROMPT, LM_PROMPT, 128, True, True),
+            (LM_BATCH, 20, 20, 1500, 1500, 64, False, True),
+            (LM_BATCH, 20, 20, ENC_SEQ, 1500, 64, False, False),
+            (LM_BATCH, 20, 20, 1, 1500, 64, False, False)):
         q = randn(b, s, hq, d, dtype=torch.bfloat16).transpose(1, 2)
-        k, v = (randn(b, s, hkv, d, dtype=torch.bfloat16).transpose(1, 2)
+        k, v = (randn(b, sk, hkv, d, dtype=torch.bfloat16).transpose(1, 2)
                 for _ in range(2))
-        want = KF.flash_attention_plain(q, k, v, causal=True)
-        line = held(torch, "flash_attention", [b, hq, hkv, s, d],
-                    KF.flash_attention(q, k, v, causal=True), want,
-                    TOL_BF16_OUT, dtype="bfloat16", causal=True)
-        within_witness(line, q, k, v, want, True)
+        want = KF.flash_attention_plain(q, k, v, causal=causal)
+        line = held(torch, "flash_attention", [b, hq, hkv, s, sk, d],
+                    KF.flash_attention(q, k, v, causal=causal), want,
+                    TOL_BF16_OUT, dtype="bfloat16", causal=causal)
+        within_witness(line, q, k, v, want, causal)
         if timed:
-            product = s * (s + 1) * d * b * hq
-            nbytes = 2 * 2 * b * s * d * (hq + hkv)
+            # each product: the causal half, or every (query, key) pair
+            product = (s * (s + 1) if causal else 2 * s * sk) * d * b * hq
+            nbytes = 2 * 2 * b * d * (hq * s + hkv * sk)
             measure_line(
                 torch, line, lambda q=q, k=k, v=v: KF.flash_attention(
-                    q, k, v, causal=True),
+                    q, k, v, causal=causal),
                 lambda q=q, k=k, v=v: KF.flash_attention_plain(
-                    q, k, v, causal=True),
+                    q, k, v, causal=causal),
                 lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True), 0.0, nbytes,
+                    q, k, v, is_causal=causal, enable_gqa=True), 0.0, nbytes,
                 bf16_flops=product, mixed_flops=product)
         del q, k, v, want
         emit(line)
@@ -2032,84 +2107,205 @@ def logits_gap(torch, got, want):
     return gap, excess
 
 
-def prefill_in(torch, T, mode, params, cfg, tokens, max_seq,
-               cache_dtype=None):
-    """One prefill with every site in ``mode``; (logits, cache, seconds).
-    The cache is bf16 unless ``cache_dtype`` says otherwise."""
+@contextlib.contextmanager
+def lm_trace(torch, preroll_kernels=0):
+    """A CPU and CUDA ``torch.profiler`` trace whose work starts
+    TRACE_MARGIN_S into it, after ``preroll_kernels`` small elementwise
+    kernels, and ends TRACE_MARGIN_S before its end, the card idle at both
+    ends."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(1024, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
+        for _ in range(preroll_kernels):
+            x.mul_(1.0)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+
+
+@contextlib.contextmanager
+def sites_in(mode):
+    """Every kernel site in ``mode`` ("kernel", "dense" or "auto")."""
     from repro_torch.kernels import dispatch
     prev = dispatch.set_kernel_backend(mode)
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = T.prefill(params, cfg, tokens, max_seq,
-                                  cache_dtype=cache_dtype or torch.bfloat16)
-        torch.cuda.synchronize()
-        return logits, cache, time.perf_counter() - t0
+        yield
     finally:
         dispatch.set_kernel_backend(prev)
 
 
+def prefill_in(torch, T, mode, params, cfg, tokens, max_seq,
+               cache_dtype=None, positions=None):
+    """One prefill with every site in ``mode``; (logits, cache, seconds).
+    The cache is bf16 unless ``cache_dtype`` says otherwise."""
+    with sites_in(mode):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(params, cfg, tokens, max_seq,
+                                  positions=positions,
+                                  cache_dtype=cache_dtype or torch.bfloat16)
+        torch.cuda.synchronize()
+        return logits, cache, time.perf_counter() - t0
+
+
 def served_launches(cfg):
-    """The kernels' launches in one prefill of ``cfg``'s stack: one
-    ``flash_attention`` per attention layer, one ``ssd_scan`` per Mamba2
-    layer (decode launches neither)."""
+    """The kernels' launches in one prefill of ``cfg``'s decoder-only
+    stack: one ``flash_attention`` per attention layer, one ``ssd_scan`` per
+    Mamba2 layer (decode launches neither)."""
     if cfg.family == "hybrid":
         n_groups = cfg.n_layers // cfg.hybrid_group
         return {"flash_attention": n_groups,
                 "ssd_scan": n_groups * (cfg.hybrid_group - 1)}
     if cfg.family == "ssm":
         return {"flash_attention": 0, "ssd_scan": cfg.n_layers}
-    return {"flash_attention": cfg.n_layers, "ssd_scan": 0}
+    return {"flash_attention": cfg.n_layers, "ssd_scan": 0}   # dense/moe/vlm
+
+
+def encdec_launches(cfg):
+    """``flash_attention`` launches of the encoder-decoder's entries: one
+    per encoder layer in ``encode``, a causal and a cross one per decoder
+    layer in ``decode_train``, one cross per decoder layer in a decode step
+    (self-attention decode is plain)."""
+    return {"encode": cfg.n_enc_layers, "decode_train": 2 * cfg.n_layers,
+            "decode_step": cfg.n_layers}
+
+
+def lm_config(arch):
+    """``arch``'s served config and its cuts, {field: [published, served]}."""
+    import dataclasses
+    from repro_torch.configs import get
+    cfg, reduced = get(arch), {}
+    if arch in LM_LAYERS:
+        reduced["n_layers"] = [cfg.n_layers, LM_LAYERS[arch]]
+        cfg = dataclasses.replace(cfg, n_layers=LM_LAYERS[arch])
+    return cfg, reduced
+
+
+def vl_positions(torch, batch, length):
+    """(3, B, length) M-RoPE positions in Qwen2-VL's layout: VL_TEXT text
+    tokens (t = h = w = i), a VL_GRID x VL_GRID image (t = VL_TEXT, h =
+    VL_TEXT + row, w = VL_TEXT + column), then text from the largest
+    position + 1 (all three streams equal)."""
+    cell = torch.arange(VL_GRID * VL_GRID)
+    text = torch.arange(VL_TEXT)
+    after = VL_TEXT + VL_GRID + torch.arange(length - VL_TEXT - cell.numel())
+    streams = [torch.full_like(cell, VL_TEXT), VL_TEXT + cell // VL_GRID,
+               VL_TEXT + cell % VL_GRID]
+    pos = torch.stack([torch.cat([text, s, after]) for s in streams])
+    return pos[:, None].expand(3, batch, length).to(torch.int32).cuda()
+
+
+def weight_bytes(params, skip=()):
+    from repro_torch.models.common import tree_leaves
+    return sum(t.numel() * t.element_size() for path, t in tree_leaves(params)
+               if path[0] not in skip)
+
+
+@contextlib.contextmanager
+def moe_routes(record=None, replay=None):
+    """Every ``moe._route`` call made inside appends its ``Route`` to
+    ``record``; with ``replay`` (an earlier run's record), the calls return
+    those routes in order instead: that run's expert choices, pinned."""
+    from repro_torch.models import moe
+    route, pinned = moe._route, None if replay is None else iter(replay)
+
+    def hooked(*args, **kwargs):
+        r = route(*args, **kwargs) if pinned is None else next(pinned)
+        if record is not None:
+            record.append(r)
+        return r
+
+    moe._route = hooked
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def draw_params(torch, bundle, out):
+    """The bundle's bf16 weights drawn on the card from SEED, with the
+    draw's time, size and peak in ``out``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init(SEED)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["param_bytes"] = weight_bytes(params)
+    # the draw's f32 slices peak above what serving holds: the served peak
+    # (weights, cache, activations) is read from here on
+    out["init_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return params
+
+
+def attention_counters(dispatch):
+    return {k: v for k, v in dispatch.dispatch_stats().items()
+            if k.endswith(("_attention_calls", "_ssd_calls"))}
+
+
+def greedy_agree(a, b) -> str:
+    """How many rows of two logits (B, V) pick the same greedy token."""
+    same = (a.argmax(dim=-1) == b.argmax(dim=-1)).sum().item()
+    return f"{same}/{a.shape[0]}"
 
 
 def phase_lm_serve(torch, np, arch):
-    """``arch`` at full width and depth with bf16 weights drawn on the card
-    from SEED: prefill 4 x 2,048 tokens through the kernels, decode 64
-    greedy tokens, and check (a) finite logits, (b) kernel vs plain prefill
-    logits and (c) prefill + decode against the longer prefill, each in
-    bf16 and on the same weights in f32.  The bf16 bounds come from the
+    """``arch`` at full width (and full depth, or the depth of LM_LAYERS)
+    with bf16 weights drawn on the card from SEED: prefill 4 x 2,048
+    tokens through the kernels, decode 64 greedy tokens, and check (a)
+    finite logits, (b) kernel vs plain prefill logits and (c) prefill +
+    decode against the longer prefill, each in bf16 and in f32 (the same
+    bf16 weights read by f32 activations).  The bf16 bounds come from the
     measured distance of the plain bf16 prefill from the plain f32 one.
-    Returns the kernels' launch counts of the served prefill and decode."""
+    A moe model's continuation check runs where nothing drops (see
+    MOE_CHECK_PROMPT); a vlm model takes the M-RoPE positions of
+    ``vl_positions``.  Returns the kernels' launch counts of the served
+    prefill and decode."""
     import dataclasses
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import fits, ssd_scan
     from repro_torch.models import transformer as T
-    from repro_torch.models.common import tree_leaves
     from repro_torch.models.model import build
 
     t_phase = time.perf_counter()
-    cfg = get(arch)
+    cfg, reduced = lm_config(arch)
     per_prefill = served_launches(cfg)
     bundle = build(cfg)
     rng = np.random.default_rng(SEED)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab, size=(LM_BATCH, LM_PROMPT))).cuda()
     max_seq = LM_PROMPT + LM_DECODE
-    out = {"phase": "lm_serve", "arch": arch, "batch": LM_BATCH,
+    pos_all = (vl_positions(torch, LM_BATCH, max_seq)
+               if cfg.mrope_sections is not None else None)
+
+    def pos(lo, hi):
+        return None if pos_all is None else pos_all[..., lo:hi]
+
+    out = {"phase": "lm_serve", "arch": arch, "family": cfg.family,
+           "n_layers": cfg.n_layers, "reduced": reduced, "batch": LM_BATCH,
            "prompt": LM_PROMPT, "decode_tokens": LM_DECODE}
+    if pos_all is not None:
+        out["positions"] = (f"M-RoPE: {VL_TEXT} text, a {VL_GRID} x "
+                            f"{VL_GRID} image grid, text from "
+                            f"{VL_TEXT + VL_GRID}")
     with torch.no_grad():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        params = bundle.init(SEED)
-        torch.cuda.synchronize()
-        out["init_s"] = time.perf_counter() - t0
-        out["param_bytes"] = sum(t.numel() * t.element_size()
-                                 for _, t in tree_leaves(params))
-        # the draw's f32 temporaries peak above what serving holds: the
-        # served peak (weights, cache, activations) is read from here on
-        out["init_max_memory_allocated"] = torch.cuda.max_memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
+        params = draw_params(torch, bundle, out)
+        # a decode step reads every weight but the embedding table
+        out["decode_bound_ms"] = (weight_bytes(params, skip=("embed",))
+                                  / PEAK_BYTES * 1e3)
 
         # the served run: every count starts at 0 and is read right after
         dispatch.reset_dispatch_stats()
         flash_attention.launches = 0
         ssd_scan.launches = 0
         logits, cache, out["prefill_s"] = prefill_in(
-            torch, T, "kernel", params, cfg, tokens, max_seq)
+            torch, T, "kernel", params, cfg, tokens, max_seq,
+            positions=pos(0, LM_PROMPT))
         prefill_launches = {"flash_attention": flash_attention.launches,
                             "ssd_scan": ssd_scan.launches}
         finite = torch.isfinite(logits).all()
@@ -2117,14 +2313,15 @@ def phase_lm_serve(torch, np, arch):
         generated = [tok]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(LM_DECODE):
-            step_logits, cache = bundle.serve_step(params, cache, tok)
+        for i in range(LM_PROMPT, max_seq):
+            step_logits, cache = bundle.serve_step(params, cache, tok,
+                                                   pos(i, i + 1))
             finite &= torch.isfinite(step_logits).all()
             tok = step_logits.argmax(dim=-1, keepdim=True)
             generated.append(tok)
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
-        counters = dispatch.dispatch_stats()
+        counters = attention_counters(dispatch)
         launches = {"flash_attention": flash_attention.launches,
                     "ssd_scan": ssd_scan.launches}
         out.update(
@@ -2133,8 +2330,7 @@ def phase_lm_serve(torch, np, arch):
             prefill_tokens_per_s=LM_BATCH * LM_PROMPT / out["prefill_s"],
             max_memory_allocated=torch.cuda.max_memory_allocated(),
             prefill_launches=prefill_launches, launches=launches,
-            counters={k: v for k, v in counters.items()
-                      if k.endswith(("_attention_calls", "_ssd_calls"))},
+            counters=counters,
             generated=torch.cat(generated, dim=1)[:, :8].tolist())
         check(bool(finite),
               f"lm_serve {arch}: non-finite logits in prefill or decode")
@@ -2149,14 +2345,23 @@ def phase_lm_serve(torch, np, arch):
               and counters["dense_ssd_calls"] == 0,
               f"lm_serve {arch}: dispatch counters {counters}")
 
-        # the same prefill again (warm), and through the plain versions
-        logits2, _, out["prefill_warm_s"] = prefill_in(
-            torch, T, "kernel", params, cfg, tokens, max_seq)
+        # the same prefill again (warm; a moe model's routing tallied), and
+        # through the plain versions
+        routes = []
+        with moe_routes(record=routes):
+            logits2, _, out["prefill_warm_s"] = prefill_in(
+                torch, T, "kernel", params, cfg, tokens, max_seq,
+                positions=pos(0, LM_PROMPT))
         out["prefill_repeats_bitwise"] = bool(torch.equal(logits, logits2))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        if routes:
+            out["moe_capacity_factor"] = cfg.capacity_factor
+            out["moe_dropped_share"] = 1 - sum(
+                r.keep.sum().item() for r in routes) / sum(
+                r.keep.numel() for r in routes)
+        del routes
+        with lm_trace(torch) as prof:
             _, _, wall = prefill_in(torch, T, "kernel", params, cfg, tokens,
-                                    max_seq)
+                                    max_seq, positions=pos(0, LM_PROMPT))
         prof_line = {"phase": "lm_profile", "arch": arch,
                      "what": f"one kernel-mode prefill, {LM_BATCH} x "
                      f"{LM_PROMPT} tokens, bf16",
@@ -2175,35 +2380,33 @@ def phase_lm_serve(torch, np, arch):
         step_cache = {k: v.clone() if torch.is_tensor(v) else v
                       for k, v in cache.items()}
         step_cache["index"] = LM_PROMPT
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            bundle.serve_step(params, step_cache, tokens[:, -1:])
+        with lm_trace(torch) as prof:
+            t0 = time.perf_counter()
+            bundle.serve_step(params, step_cache, tokens[:, -1:],
+                              pos(LM_PROMPT, LM_PROMPT + 1))
             torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         emit({"phase": "lm_profile", "arch": arch, "what": f"one decode "
-              f"step, batch {LM_BATCH}, bf16", **device_profile(
-                  prof, time.perf_counter() - t0)})
-        del step_cache
+              f"step, batch {LM_BATCH}, bf16", **device_profile(prof, wall)})
+        del step_cache, cache, logits2
         dense, _, out["prefill_dense_s"] = prefill_in(
-            torch, T, "dense", params, cfg, tokens, max_seq)
+            torch, T, "dense", params, cfg, tokens, max_seq,
+            positions=pos(0, LM_PROMPT))
         out["bf16_kernel_vs_dense"], _ = logits_gap(torch, logits, dense)
-        del logits2
+        out["bf16_greedy_agree_kernel_vs_dense"] = greedy_agree(logits, dense)
 
-        # (c) prefill t0..t2046, decode t2047, against the prefill of all
-        out["bf16_decode_vs_prefill"] = decode_vs_prefill(
-            torch, T, bundle, params, cfg, tokens, logits)
-
-        # the same weights in f32 (the bf16 values, exactly): (b) and (c)
-        # as rounding comparisons, and the bf16 model's rounding floor.
-        # Where the f32 SSD kernel does not fit the state (mamba2's N =
-        # 128), "auto" runs the SSD dense, as it does for any f32 caller:
-        # then the bf16 checks hold the SSD kernel on this path, and the
-        # kernels phase holds it at the same shape against its witness.
-        cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
-                                    act_dtype=torch.float32)
+        # the same weights read by f32 activations: every use casts its
+        # weight to the activation's dtype, so this is the model with its
+        # bf16 weights held in f32, exactly.  (b) and (c) as rounding
+        # comparisons, and the bf16 model's rounding floor.  Where the f32
+        # SSD kernel does not fit the state (mamba2's N = 128), "auto" runs
+        # the SSD dense, as it does for any f32 caller: then the bf16
+        # checks hold the SSD kernel on this path, and the kernels phase
+        # holds it at the same shape against its witness.
+        cfg32 = dataclasses.replace(cfg, act_dtype=torch.float32)
+        out["f32_weights"] = "the bf16 weights, read by f32 activations"
         f32_mode = "kernel"
-        if cfg.family != "dense" and not fits(
+        if cfg.family in ("ssm", "hybrid") and not fits(
                 cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk, torch.float32):
             f32_mode = "auto"
             out["f32_note"] = (
@@ -2214,35 +2417,90 @@ def phase_lm_serve(torch, np, arch):
                 f"holds it at this shape within {WITNESS_SHARE} of the "
                 f"bf16-operand witness")
         out["f32_mode"] = f32_mode
-        params32 = as_f32(params)
-        del params, cache
         torch.cuda.empty_cache()
         dispatch.reset_dispatch_stats()
-        kern32, kcache, out["f32_prefill_s"] = prefill_in(
-            torch, T, f32_mode, params32, cfg32, tokens, LM_PROMPT,
-            torch.float32)
-        out["f32_counters"] = {
-            k: v for k, v in dispatch.dispatch_stats().items()
-            if k.endswith(("_attention_calls", "_ssd_calls"))}
-        dense32, dcache, out["f32_prefill_dense_s"] = prefill_in(
-            torch, T, "dense", params32, cfg32, tokens, LM_PROMPT,
-            torch.float32)
-        out["f32_kernel_vs_dense"], _ = logits_gap(torch, kern32, dense32)
+        kern_routes, dense_routes = [], []
+        with moe_routes(record=kern_routes):
+            kern32, kcache, out["f32_prefill_s"] = prefill_in(
+                torch, T, f32_mode, params, cfg32, tokens, LM_PROMPT,
+                torch.float32, positions=pos(0, LM_PROMPT))
+        out["f32_counters"] = attention_counters(dispatch)
+        with moe_routes(record=dense_routes):
+            dense32, dcache, out["f32_prefill_dense_s"] = prefill_in(
+                torch, T, "dense", params, cfg32, tokens, LM_PROMPT,
+                torch.float32, positions=pos(0, LM_PROMPT))
+        plain32 = dense32
+        if kern_routes:
+            # A router near a top-k tie picks another expert when the
+            # attention's rounding moves its input, and with capacity-
+            # limited experts that shifts the ranks, and so the drops, of
+            # every later assignment to both experts: the kernel and plain
+            # runs then differ by discrete choices, not by rounding.  The
+            # rounding comparison runs the plain version with the kernel
+            # run's routes pinned; the unpinned gap and the number of
+            # assignments routed apart are printed beside it.
+            out["f32_routing_differences"] = sum(
+                int((a.slot_e != b.slot_e).sum())
+                for a, b in zip(kern_routes, dense_routes))
+            out["f32_kernel_vs_dense_unpinned"], _ = logits_gap(
+                torch, kern32, dense32)
+            del dcache
+            with moe_routes(replay=kern_routes):
+                plain32, dcache, _ = prefill_in(
+                    torch, T, "dense", params, cfg32, tokens, LM_PROMPT,
+                    torch.float32, positions=pos(0, LM_PROMPT))
+            out["f32_plain_routes"] = "pinned to the kernel run's"
+        del kern_routes, dense_routes
+        out["f32_kernel_vs_dense"], _ = logits_gap(torch, kern32, plain32)
+        out["f32_greedy_agree_kernel_vs_dense"] = greedy_agree(kern32, plain32)
         out["f32_cache_kernel_vs_dense"] = {
             key: logits_gap(torch, kcache[key], dcache[key])[0]
             for key in kcache if key != "index"}
-        del kcache, dcache
+        del kcache, dcache, plain32
         out["bf16_floor"], _ = logits_gap(torch, dense, dense32)
         out["bf16_kernel_vs_f32"], _ = logits_gap(torch, logits, dense32)
-        out["f32_decode_vs_prefill"] = decode_vs_prefill(
-            torch, T, build(cfg32), params32, cfg32, tokens, kern32,
-            torch.float32, f32_mode)
-        del params32
+        out["bf16_greedy_agree_kernel_vs_f32"] = greedy_agree(logits, dense32)
+        del dense, dense32
+
+        # (c) prefill all but the last token, decode it, against the
+        # prefill of all.  With capacity-limited experts the two prefills
+        # drop different assignments (the ranks run over the flattened
+        # batch), so a moe model takes this check where nothing drops, on
+        # a prompt short enough for that capacity's buffers.
+        check_tokens, check_cfg = tokens, cfg
+        if cfg.family == "moe":
+            check_tokens = tokens[:, :MOE_CHECK_PROMPT]
+            check_cfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+            out["decode_check"] = (
+                f"{LM_BATCH} x {MOE_CHECK_PROMPT}-token prompt at capacity "
+                f"factor {check_cfg.capacity_factor}, where no assignment "
+                f"drops; its own bf16 floor")
+        n_check = check_tokens.shape[1]
+        for prec, act, mode, want in (
+                ("bf16", torch.bfloat16, "kernel", logits),
+                ("f32", torch.float32, f32_mode, kern32)):
+            c = dataclasses.replace(check_cfg, act_dtype=act)
+            cache_dtype = torch.float32 if prec == "f32" else None
+            if check_tokens is not tokens:
+                want = prefill_in(torch, T, mode, params, c, check_tokens,
+                                  n_check, cache_dtype)[0]
+            out[f"{prec}_decode_vs_prefill"] = decode_vs_prefill(
+                torch, T, build(c), params, c, check_tokens, want,
+                cache_dtype, mode, pos(0, n_check))
+        check_floor = out["bf16_floor"]
+        if check_tokens is not tokens:
+            check_floor, _ = logits_gap(torch, *(prefill_in(
+                torch, T, "dense", params, dataclasses.replace(
+                    check_cfg, act_dtype=dt), check_tokens, n_check)[0]
+                for dt in (torch.bfloat16, torch.float32)))
+            out["bf16_floor_decode_check"] = check_floor
+        del logits, kern32, params
         torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
-    bf16_tol = LM_BF16_FLOORS * out["bf16_floor"]
-    check(out["bf16_floor"] <= TOL_LM_BF16_FLOOR,
+    bf16_tol = LM_BF16_FLOORS * min(out["bf16_floor"], TOL_LM_BF16_FLOOR)
+    check(arch not in LM_FLOOR_HELD or out["bf16_floor"] <= TOL_LM_BF16_FLOOR,
           f"lm_serve {arch}: bf16 plain vs f32 plain logits "
           f"{out['bf16_floor']}")
     check(out["f32_kernel_vs_dense"] <= TOL_LM_F32,
@@ -2254,29 +2512,224 @@ def phase_lm_serve(torch, np, arch):
     check(out["f32_decode_vs_prefill"]["allclose_excess"] <= 0,
           f"lm_serve {arch}: f32 prefill + decode vs prefill "
           f"{out['f32_decode_vs_prefill']}")
-    check(out["bf16_decode_vs_prefill"]["rel"] <= bf16_tol,
+    check(out["bf16_decode_vs_prefill"]["rel"]
+          <= LM_BF16_FLOORS * min(check_floor, TOL_LM_BF16_FLOOR),
           f"lm_serve {arch}: bf16 prefill + decode vs prefill "
-          f"{out['bf16_decode_vs_prefill']} > {bf16_tol}")
+          f"{out['bf16_decode_vs_prefill']} > {LM_BF16_FLOORS} x "
+          f"{check_floor}")
     return launches
 
 
-def as_f32(tree):
-    """A parameter tree with every leaf in f32."""
-    if isinstance(tree, dict):
-        return {k: as_f32(v) for k, v in tree.items()}
-    return tree.float()
-
-
 def decode_vs_prefill(torch, T, bundle, params, cfg, tokens, want,
-                      cache_dtype=None, mode="kernel"):
+                      cache_dtype=None, mode="kernel", positions=None):
     """Check (c): prefill all but the last token (sites in ``mode``),
     decode the last one, and compare with ``want``, the logits of the
     prefill of all the tokens."""
-    _, cache, _ = prefill_in(torch, T, mode, params, cfg, tokens[:, :-1],
-                             tokens.shape[1], cache_dtype)
-    got, _ = bundle.serve_step(params, cache, tokens[:, -1:])
+    last = None if positions is None else positions[..., -1:]
+    _, cache, _ = prefill_in(
+        torch, T, mode, params, cfg, tokens[:, :-1], tokens.shape[1],
+        cache_dtype, None if positions is None else positions[..., :-1])
+    got, _ = bundle.serve_step(params, cache, tokens[:, -1:], last)
     rel_gap, excess = logits_gap(torch, got, want)
     return {"rel": rel_gap, "allclose_excess": excess}
+
+
+def phase_lm_serve_encdec(torch, np, arch):
+    """The encoder-decoder ``arch`` at full width and depth with bf16
+    weights drawn on the card from SEED: encode LM_BATCH x enc_frames stub
+    frame embeddings through the kernels, fill each decoder layer's cross
+    K/V in a cache of ENC_CONTEXT positions, run the teacher-forced decoder
+    over ENC_SEQ tokens, the same tokens as ENC_SEQ decode steps, then
+    LM_DECODE greedy steps.  Checks (a) finite logits, (b) kernel vs plain
+    (encoder and teacher-forced logits) and (c) decode steps against the
+    teacher-forced logits, each in bf16 and in f32 (the same bf16 weights
+    read by f32 activations), the bf16 bounds from the measured distance
+    of the plain bf16 run from the plain f32 one.  Returns the flash
+    kernel's launches of the served run."""
+    import dataclasses
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import encdec as E
+    from repro_torch.models.attention import cross_kv
+    from repro_torch.models.common import take
+    from repro_torch.models.model import build
+
+    t_phase = time.perf_counter()
+    cfg, reduced = lm_config(arch)
+    per = encdec_launches(cfg)
+    bundle = build(cfg)
+    rng = np.random.default_rng(SEED)
+    frames = torch.from_numpy(rng.standard_normal(
+        (LM_BATCH, cfg.enc_frames, cfg.d_model)).astype(np.float32)).cuda()
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(LM_BATCH, ENC_SEQ))).cuda()
+    out = {"phase": "lm_serve", "arch": arch, "family": cfg.family,
+           "n_layers": cfg.n_layers, "n_enc_layers": cfg.n_enc_layers,
+           "reduced": reduced, "batch": LM_BATCH, "frames": cfg.enc_frames,
+           "teacher_forced_tokens": ENC_SEQ, "decode_tokens": LM_DECODE,
+           "cache_positions": ENC_CONTEXT}
+
+    def run(mode, c, steps=0, cache_dtype=torch.bfloat16):
+        """Encode, fill the cross K/V, decode_train, and ``steps``
+        teacher-forced decode steps with every site in ``mode``; returns
+        (dict of outputs and seconds, cache)."""
+        with sites_in(mode):
+            r, start = {}, flash_attention.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r["enc"] = E.encode(params, c, frames)
+            torch.cuda.synchronize()
+            r["encode_s"] = time.perf_counter() - t0
+            r["encode_launches"] = flash_attention.launches - start
+            cache = E.init_cache(c, LM_BATCH, ENC_CONTEXT, cache_dtype)
+            for i in range(c.n_layers):
+                cache["xk"][i], cache["xv"][i] = cross_kv(
+                    r["enc"], take(params["dec"]["xattn"], i), c)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r["train"] = E.decode_train(params, c, tokens, r["enc"])
+            torch.cuda.synchronize()
+            r["decode_train_s"] = time.perf_counter() - t0
+            r["decode_train_launches"] = (flash_attention.launches - start
+                                          - r["encode_launches"])
+            steps_out = []
+            for t in range(steps):
+                logits, cache = E.decode_step(params, c, cache,
+                                              tokens[:, t:t + 1])
+                steps_out.append(logits)
+            if steps:
+                r["steps"] = torch.stack(steps_out, dim=1)
+            return r, cache
+
+    with torch.no_grad():
+        params = draw_params(torch, bundle, out)
+        # a decode step reads the decoder's weights, the head and the cross
+        # K/V
+        out["decode_bound_ms"] = (
+            weight_bytes(params, skip=("embed", "pos_dec", "enc", "enc_norm"))
+            + 2 * cfg.n_layers * LM_BATCH * cfg.enc_frames * cfg.n_kv_heads
+            * cfg.d_head * 2) / PEAK_BYTES * 1e3
+
+        # the served run: every count starts at 0 and is read right after
+        dispatch.reset_dispatch_stats()
+        flash_attention.launches = 0
+        served, cache = run("kernel", cfg, ENC_SEQ)
+        tf_launches = flash_attention.launches
+        finite = (torch.isfinite(served["train"]).all()
+                  & torch.isfinite(served["steps"]).all())
+        tok = served["steps"][:, -1].argmax(dim=-1, keepdim=True)
+        generated = [tok]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sites_in("kernel"):
+            for _ in range(LM_DECODE):
+                step_logits, cache = bundle.serve_step(params, cache, tok)
+                finite &= torch.isfinite(step_logits).all()
+                tok = step_logits.argmax(dim=-1, keepdim=True)
+                generated.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        counters = attention_counters(dispatch)
+        launches = {"flash_attention": flash_attention.launches,
+                    "ssd_scan": 0}
+        got = {"encode": served["encode_launches"],
+               "decode_train": served["decode_train_launches"],
+               "decode_step": (flash_attention.launches - tf_launches)
+               / LM_DECODE,
+               "teacher_forced_decode_step": (
+                   tf_launches - served["encode_launches"]
+                   - served["decode_train_launches"]) / ENC_SEQ}
+        out.update(
+            encode_s=served["encode_s"],
+            encode_frames_per_s=LM_BATCH * cfg.enc_frames / served["encode_s"],
+            decode_train_s=served["decode_train_s"],
+            decode_ms_per_token=decode_s / LM_DECODE * 1e3,
+            decode_tokens_per_s=LM_BATCH * LM_DECODE / decode_s,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            launches_per=got, launches=launches, counters=counters,
+            generated=torch.cat(generated, dim=1)[:, :8].tolist())
+        want_per = dict(per, teacher_forced_decode_step=per["decode_step"])
+        check(bool(finite),
+              f"lm_serve {arch}: non-finite logits in decode_train or decode")
+        check(got == want_per,
+              f"lm_serve {arch}: flash launches {got}, expected {want_per}")
+        check(counters["kernel_attention_calls"] == launches["flash_attention"]
+              and counters["dense_attention_calls"] == 0,
+              f"lm_serve {arch}: dispatch counters {counters}")
+        del cache
+
+        # one profiled encode, then the cross K/V fill (no flash launch)
+        # that a served request runs next.  A trace is complete when it
+        # holds the encode's 32 SwiGLU silu kernels; an incomplete one is
+        # taken again, up to TRACE_ATTEMPTS times (see TRACE_MARGIN_S)
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            with sites_in("kernel"):
+                with lm_trace(torch, TRACE_PREROLL_KERNELS) as prof:
+                    t0 = time.perf_counter()
+                    enc = E.encode(params, cfg, frames)
+                    for i in range(cfg.n_layers):
+                        cross_kv(enc, take(params["dec"]["xattn"], i), cfg)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            del enc
+            prof_line = {"phase": "lm_profile", "arch": arch,
+                         "what": f"one kernel-mode encode, {LM_BATCH} x "
+                         f"{cfg.enc_frames} frames, and the cross K/V of its "
+                         f"{cfg.n_layers} decoder layers, bf16",
+                         "trace_attempt": attempt,
+                         **device_profile(prof, wall,
+                                          focus=("flash_", "silu_"))}
+            silu = sum(r["calls"] for r in prof_line["focus"]
+                       if "silu_" in r["name"])
+            if silu == cfg.n_enc_layers:
+                break
+        prof_line["flash_device_ms"] = sum(
+            r["device_ms"] for r in prof_line["focus"] if "flash_" in r["name"])
+        emit(prof_line)
+        calls = sum(r["calls"] for r in prof_line["focus"]
+                    if FLASH_BF16_KERNEL in r["name"])
+        check(calls == per["encode"],
+              f"lm_profile {arch}: {FLASH_BF16_KERNEL} ran {calls} times in "
+              f"an encode, not {per['encode']}")
+
+        # (b) and (c) in bf16, f32 and the floor: the plain versions, and
+        # the same bf16 weights read by f32 activations
+        cfg32 = dataclasses.replace(cfg, act_dtype=torch.float32)
+        out["f32_weights"] = "the bf16 weights, read by f32 activations"
+        dense, _ = run("dense", cfg)
+        kern32, _ = run("kernel", cfg32, ENC_SEQ, torch.float32)
+        dense32, _ = run("dense", cfg32)
+        for prec, k, d in (("bf16", served, dense), ("f32", kern32, dense32)):
+            out[f"{prec}_kernel_vs_dense"], _ = logits_gap(
+                torch, k["train"], d["train"])
+            out[f"{prec}_encoder_kernel_vs_dense"], _ = logits_gap(
+                torch, k["enc"], d["enc"])
+            out[f"{prec}_greedy_agree_kernel_vs_dense"] = greedy_agree(
+                k["train"].flatten(0, 1), d["train"].flatten(0, 1))
+            gap, excess = logits_gap(torch, k["steps"], k["train"])
+            out[f"{prec}_decode_vs_decode_train"] = {
+                "rel": gap, "allclose_excess": excess}
+        out["bf16_floor"], _ = logits_gap(torch, dense["train"],
+                                          dense32["train"])
+        del served, dense, kern32, dense32, params
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    bf16_tol = LM_BF16_FLOORS * min(out["bf16_floor"], TOL_LM_BF16_FLOOR)
+    check(out["f32_kernel_vs_dense"] <= TOL_LM_F32
+          and out["f32_encoder_kernel_vs_dense"] <= TOL_LM_F32,
+          f"lm_serve {arch}: f32 kernel vs plain {out['f32_kernel_vs_dense']}"
+          f" (encoder {out['f32_encoder_kernel_vs_dense']})")
+    check(out["bf16_kernel_vs_dense"] <= bf16_tol,
+          f"lm_serve {arch}: bf16 kernel vs plain logits "
+          f"{out['bf16_kernel_vs_dense']} > {bf16_tol}")
+    check(out["f32_decode_vs_decode_train"]["allclose_excess"] <= 0,
+          f"lm_serve {arch}: f32 decode steps vs decode_train "
+          f"{out['f32_decode_vs_decode_train']}")
+    check(out["bf16_decode_vs_decode_train"]["rel"] <= bf16_tol,
+          f"lm_serve {arch}: bf16 decode steps vs decode_train "
+          f"{out['bf16_decode_vs_decode_train']} > {bf16_tol}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3105,7 +3558,8 @@ def main() -> int:
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
-          "no_spill_ptxas": no_spill})
+          "no_spill_ptxas": no_spill,
+          "profiler_warm_traces": warm_profiler(torch)})
 
     phase_s = {"build": build_s}
 
@@ -3147,6 +3601,9 @@ def main() -> int:
             by_path[arch] = timed(f"lm_serve_{arch}", phase_lm_serve, torch,
                                   np, arch)
             torch.cuda.empty_cache()
+        by_path[ENCDEC_ARCH] = timed(f"lm_serve_{ENCDEC_ARCH}",
+                                     phase_lm_serve_encdec, torch, np,
+                                     ENCDEC_ARCH)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1

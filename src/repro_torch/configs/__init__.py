@@ -1,9 +1,8 @@
 """Architecture registry: counterpart of ``repro.configs``.
 
 ``get(name)`` returns the full published Config; ``get_smoke(name)`` a
-reduced same-family config for CPU tests.  The dense, ssm and hybrid
-architectures are ported; the moe, vlm and encdec ones raise with the
-``ROADMAP.md`` item that ports them.
+reduced same-family config for CPU tests.  Every architecture of the
+reference is ported: the dense, moe, ssm, hybrid, vlm and encdec families.
 """
 from __future__ import annotations
 
@@ -31,28 +30,16 @@ _MODULES = {
     "qwen3-4b": "qwen3_4b",
     "smollm-360m": "smollm_360m",
     "deepseek-coder-33b": "deepseek_coder_33b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b",
+    "arctic-480b": "arctic_480b",
     "zamba2-2.7b": "zamba2_2p7b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
     "mamba2-2.7b": "mamba2_2p7b",
-}
-
-# Not ported yet: the LM-substrate item of ROADMAP.md §1 that ports each
-# family, and each architecture's family.
-FAMILY_ITEMS = {
-    "moe": "LM item 3 (moe family)",
-    "vlm": "LM item 4 (vlm family)",
-    "encdec": "LM item 5 (encdec family)",
-}
-PENDING = {
-    "qwen3-moe-30b-a3b": "moe", "arctic-480b": "moe",
-    "qwen2-vl-72b": "vlm", "whisper-large-v3": "encdec",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 
 def get(name: str) -> Config:
-    if name in PENDING:
-        raise NotImplementedError(
-            f"{name} is not ported to repro_torch yet: ROADMAP.md §1, "
-            f"{FAMILY_ITEMS[PENDING[name]]}")
     if name not in _MODULES:
         raise KeyError(f"unknown architecture {name!r}: expected one of {ARCHS}")
     return importlib.import_module(
@@ -60,8 +47,8 @@ def get(name: str) -> Config:
 
 
 def get_smoke(name: str) -> Config:
-    """Reduced same-family config: small widths, few layers (the
-    reference's overrides)."""
+    """Reduced same-family config: small widths, few layers and experts
+    (the reference's overrides)."""
     cfg = get(name)
     overrides = dict(
         n_layers=2, d_model=64, d_ff=128, vocab=256,
@@ -69,8 +56,14 @@ def get_smoke(name: str) -> Config:
         param_dtype=cfg.param_dtype, act_dtype=cfg.act_dtype,
         remat=False,
     )
+    if cfg.family == "moe":
+        overrides.update(n_experts=8, top_k=2, d_expert_ff=64)
     if cfg.family in ("ssm", "hybrid"):
         overrides.update(ssm_state=16, ssm_head_dim=16)
     if cfg.family == "hybrid":
         overrides.update(n_layers=6, hybrid_group=3)
+    if cfg.family == "encdec":
+        overrides.update(n_enc_layers=2, enc_frames=16)
+    if cfg.mrope_sections is not None:
+        overrides.update(mrope_sections=(2, 3, 3))   # half of d_head 16
     return dataclasses.replace(cfg, **overrides)

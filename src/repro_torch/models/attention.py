@@ -1,10 +1,13 @@
-"""GQA attention with RoPE and qk-norm, full-sequence and cached decode.
+"""GQA attention with RoPE, M-RoPE and qk-norm: full-sequence, cached
+decode and cross-attention.
 
 Counterpart of ``repro.models.attention``.  Public functions keep the
-reference's (B, S, H, dh) layout.  Full-sequence attention goes through
+reference's (B, S, H, dh) layout.  Full-sequence attention and
+cross-attention against encoder K/V (in decode too) go through
 :func:`repro_torch.kernels.ops.attention` (the flash kernel on the card);
-one-token decode stays plain torch, as in the reference, where the matvec
-path is already memory-optimal: it calls the kernel's plain version,
+one-token self-attention decode stays plain torch, as in the reference,
+where the matvec path is already memory-optimal: it calls the kernel's
+plain version,
 :func:`~repro_torch.kernels.flash_attention.flash_attention_plain`, with
 the cache's valid length (the reference's ``_sdpa``).
 """
@@ -16,7 +19,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.models.common import Config, P_, apply_rope, rms_norm
+from repro_torch.models.common import (Config, P_, apply_mrope, apply_rope,
+                                      rms_norm)
 
 
 def attn_specs(cfg: Config, n_layers: int) -> Dict[str, P_]:
@@ -53,10 +57,11 @@ def _qkv(x, p, cfg: Config, positions, rope: bool):
         k = rms_norm(k, p["k_norm"])
     if rope and positions is not None:
         if cfg.mrope_sections is not None:
-            raise NotImplementedError("M-RoPE (vlm family) is not ported yet: "
-                                      "ROADMAP.md §1, LM item 4")
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+            q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+            k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -103,3 +108,21 @@ def attn_decode(x, p, cfg: Config, cache_k, cache_v, index: int,
         q.transpose(1, 2), cache_k.to(q.dtype).transpose(1, 2),
         cache_v.to(q.dtype).transpose(1, 2), causal=False, kv_len=kv_len)
     return _out(out.transpose(1, 2), p["wo"]), cache_k, cache_v
+
+
+def cross_attn_apply(x, p, cfg: Config, mem_k, mem_v):
+    """Cross-attention of x (B, S, D) against precomputed encoder K/V
+    (B, T, KV, dh), through the ``attention`` site (non-causal)."""
+    q = _proj(x, p["wq"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+    out = _attend(q, mem_k.to(q.dtype), mem_v.to(q.dtype), causal=False)
+    return _out(out, p["wo"])
+
+
+def cross_kv(mem, p, cfg: Config):
+    """Encoder memory (B, T, D) -> cross K/V with this layer's wk/wv."""
+    k, v = _proj(mem, p["wk"]), _proj(mem, p["wv"])
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"])
+    return k, v

@@ -11,6 +11,7 @@ counterpart on one card.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -40,12 +41,29 @@ def tree_leaves(tree, prefix: Tuple[str, ...] = ()):
                                                                 prefix + (k,))]
 
 
+# A leaf whose f32 draw would take more than WHOLE_DRAW_BYTES is drawn in
+# slices of its leading axis, each at most SLICE_DRAW_BYTES of f32 (or one
+# index, if that is larger), straight into its tensor: Qwen3-30B-A3B's
+# expert stacks, (48, 128, 2048, 768), would otherwise need a 38.7 GB f32
+# temporary beside 61 GB of bf16 weights.  Every leaf of the dense, ssm and
+# hybrid models served on the card (at most 3.6 GB of f32) is drawn whole,
+# so their weights stay what they were.
+WHOLE_DRAW_BYTES = 4 * 2**30
+SLICE_DRAW_BYTES = 2**30
+
+
 def init_params(specs, generator: torch.Generator, param_dtype=torch.float32,
                 device=None) -> Dict[str, Any]:
     """Draw every leaf on ``device`` from ``generator`` (which must live on
     that device): normal * 0.02, small = normal * 0.006, zeros, ones.  The
-    draws are f32, cast to the leaf's dtype."""
+    draws are f32, cast to the leaf's dtype; a leaf above
+    ``WHOLE_DRAW_BYTES`` of f32 is drawn slice by slice along its leading
+    axis."""
     device = resolve_device(device)
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=device) * scale
 
     def draw(spec: P_):
         dtype = spec.dtype or param_dtype
@@ -54,9 +72,15 @@ def init_params(specs, generator: torch.Generator, param_dtype=torch.float32,
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dtype, device=device)
         scale = 0.02 if spec.init == "normal" else 0.006
-        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return (x * scale).to(dtype)
+        if math.prod(spec.shape) * 4 <= WHOLE_DRAW_BYTES:
+            return normal(spec.shape, scale).to(dtype)
+        out = torch.empty(spec.shape, dtype=dtype, device=device)
+        row = math.prod(spec.shape[1:]) * 4
+        step = max(1, SLICE_DRAW_BYTES // row)
+        for i in range(0, spec.shape[0], step):
+            rows = min(step, spec.shape[0] - i)
+            out[i:i + rows] = normal((rows,) + spec.shape[1:], scale)
+        return out
 
     out: Dict[str, Any] = {}
     for path, spec in tree_leaves(specs):
@@ -157,13 +181,38 @@ def _rope_freqs(d_half: int, theta: float, device) -> torch.Tensor:
                                          device=device) / d_half))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 1e4) -> torch.Tensor:
-    """Rotate-half RoPE. x: (B, S, H, D), positions: (B, S) int."""
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate-half by f32 angles ``ang`` (B, S, D / 2), in x's dtype."""
     half = x.shape[-1] // 2
-    ang = positions.float()[..., None] * _rope_freqs(half, theta, x.device)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """Rotate-half RoPE. x: (B, S, H, D), positions: (B, S) int."""
+    half = x.shape[-1] // 2
+    return _rotate(x, positions.float()[..., None]
+                   * _rope_freqs(half, theta, x.device))
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: Tuple[int, int, int],
+                theta: float = 1e6) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: (B, S, H, D), positions: (3, B, S) int
+    for (t, h, w); ``sections`` split the half-dim (sum == D // 2): each
+    frequency slot takes its angle from the position stream of its
+    section."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"apply_mrope: sections {tuple(sections)} sum to "
+                         f"{sum(sections)}, not half the head dimension "
+                         f"{half}")
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))          # (half,)
+    pos = positions.float()[sec_id]                         # (half, B, S)
+    return _rotate(x, pos.movedim(0, -1) * _rope_freqs(half, theta, x.device))

@@ -1,13 +1,15 @@
-"""Decoder stacks of the dense, ssm (Mamba2) and hybrid (Zamba2) families:
-full-sequence, prefill and decode.
+"""Decoder stacks of the dense, moe, vlm, ssm (Mamba2) and hybrid
+(Zamba2) families: full-sequence, prefill and decode.
 
 Counterpart of ``repro.models.transformer``.  Layer parameters stay stacked
 on their leading axis; where the reference scans, the port loops in
-Python.  The dense stack runs one attention + SwiGLU block per layer, the
-ssm stack one Mamba2 block per layer, and the hybrid stack groups of
-Mamba2 blocks, each group closed by one attention + SwiGLU block whose
-weights every group shares.  The moe, vlm and encdec families are not
-ported yet and raise.
+Python.  The dense and vlm stacks run one attention + SwiGLU block per
+layer, the moe stack one attention + MoE block (plus a dense SwiGLU
+residual under ``moe_dense_residual``), the ssm stack one Mamba2 block per
+layer, and the hybrid stack groups of Mamba2 blocks, each group closed by
+one attention + SwiGLU block whose weights every group shares.  The vlm
+family rotates by M-RoPE over (3, B, S) positions.  The encdec family has
+its own stack, :mod:`repro_torch.models.encdec`.
 """
 from __future__ import annotations
 
@@ -16,18 +18,18 @@ from typing import Dict, Iterator, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.configs import FAMILY_ITEMS
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as att
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import Config, P_, rms_norm, swiglu, take
 
 
 def _check_family(cfg: Config, what: str) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{what} for the {cfg.family} family is not ported to repro_torch "
-            f"yet: ROADMAP.md §1, {FAMILY_ITEMS[cfg.family]}")
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
+        raise ValueError(
+            f"{what}: the {cfg.family} family has no decoder-only stack; the "
+            f"encdec family is served by repro_torch.models.encdec")
 
 
 # ---------------------------------------------------------------------------
@@ -41,15 +43,20 @@ def mlp_specs(cfg: Config, n_layers: int) -> Dict[str, P_]:
 
 
 def block_specs(cfg: Config, n_layers: int) -> Dict[str, object]:
-    """Attention + SwiGLU blocks: the dense family's layers, the hybrid
-    family's shared block."""
+    """Attention + FFN blocks: the dense, moe and vlm families' layers, the
+    hybrid family's shared block.  The FFN is SwiGLU, or for moe the
+    experts (plus SwiGLU under ``moe_dense_residual``)."""
     L = (n_layers,)
-    return {
+    specs: Dict[str, object] = {
         "ln1": P_(L + (cfg.d_model,), init="ones"),
         "ln2": P_(L + (cfg.d_model,), init="ones"),
         "attn": att.attn_specs(cfg, n_layers),
-        "mlp": mlp_specs(cfg, n_layers),
     }
+    if cfg.family == "moe":
+        specs["moe"] = moe_mod.moe_specs(cfg, n_layers)
+    if cfg.family != "moe" or cfg.moe_dense_residual:
+        specs["mlp"] = mlp_specs(cfg, n_layers)
+    return specs
 
 
 def lm_specs(cfg: Config) -> Dict[str, object]:
@@ -90,11 +97,11 @@ def _layers(params, cfg: Config) -> Iterator[tuple]:
 
     ``kind`` "ssm": a Mamba2 block whose ``ssm_ln``/``ssm`` parameters and
     cache slots sit at ``idx`` (a layer, or a (group, layer) pair).
-    ``kind`` "attn": an attention + SwiGLU block whose ``k``/``v`` cache
-    slot is ``idx``.  Dense: one attention block per layer; ssm: one Mamba2
-    block per layer; hybrid: groups of Mamba2 blocks, each closed by the
-    attention block whose weights every group shares."""
-    if cfg.family == "dense":
+    ``kind`` "attn": an attention + FFN block whose ``k``/``v`` cache
+    slot is ``idx``.  Dense, moe, vlm: one attention block per layer; ssm:
+    one Mamba2 block per layer; hybrid: groups of Mamba2 blocks, each closed
+    by the attention block whose weights every group shares."""
+    if cfg.family in ("dense", "moe", "vlm"):
         for i in range(cfg.n_layers):
             yield "attn", i, take(params["layers"], i), cfg
     elif cfg.family == "ssm":
@@ -113,17 +120,27 @@ def _ssm_layer(params, idx):
     return {"ln": params["ssm_ln"][idx], "ssm": take(params["ssm"], idx)}
 
 
+def _ffn(z, lp, cfg: Config):
+    """The block's FFN on the normed z: the experts, the experts plus the
+    dense SwiGLU residual, or SwiGLU."""
+    if cfg.family != "moe":
+        return swiglu(z, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+    m = moe_mod.moe_apply(z, lp["moe"], cfg)
+    if cfg.moe_dense_residual:
+        m = m + swiglu(z, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+    return m
+
+
 def _attn_block(x, lp, cfg: Config, positions, cache=None, idx=None):
-    """An attention + SwiGLU block over the sequence; with a ``cache``, its
-    K and V go into the first positions of ``k``/``v`` at ``idx``."""
+    """An attention + FFN block over the sequence; with a ``cache``, its K
+    and V go into the first positions of ``k``/``v`` at ``idx``."""
     a_out, (k, v) = att.attn_prefill(rms_norm(x, lp["ln1"]), lp["attn"], cfg,
                                      positions)
     if cache is not None:
         cache["k"][idx, :, :k.shape[1]] = k
         cache["v"][idx, :, :v.shape[1]] = v
     h = x + a_out
-    z = rms_norm(h, lp["ln2"])
-    return h + swiglu(z, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+    return h + _ffn(rms_norm(h, lp["ln2"]), lp, cfg)
 
 
 def _mamba_block(x, lp, cfg: Config, cache=None, idx=None):
@@ -149,7 +166,10 @@ def _run_stack(x, params, cfg: Config, positions, cache=None):
 
 
 def default_positions(cfg: Config, b: int, s: int, device=None):
-    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+    """Positions 0..s-1 for each row: (B, S), or (3, B, S) under M-RoPE
+    (text only: the three streams equal)."""
+    pos = torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+    return pos.expand(3, b, s) if cfg.mrope_sections is not None else pos
 
 
 def _embed(params, cfg: Config, tokens):
@@ -160,10 +180,14 @@ def _logits(x, params):
     return rms_norm(x, params["final_norm"]) @ params["head"].to(x.dtype)
 
 
-def forward(params, cfg: Config, tokens, positions=None) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V)."""
+def forward(params, cfg: Config, tokens, positions=None,
+            embeddings=None) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, V).  ``embeddings`` (B, S, D),
+    where given, replace the token embeddings (the vlm's entry for stubbed
+    vision features)."""
     _check_family(cfg, "forward")
-    x = _embed(params, cfg, tokens)
+    x = (_embed(params, cfg, tokens) if embeddings is None
+         else embeddings.to(cfg.act_dtype))
     b, s = x.shape[:2]
     if positions is None:
         positions = default_positions(cfg, b, s, x.device)
@@ -182,15 +206,15 @@ class CacheSpec(NamedTuple):
 def init_cache_specs(cfg: Config, batch: int, max_seq: int,
                      dtype=torch.bfloat16) -> Dict[str, CacheSpec]:
     """Shapes and dtypes of the decode cache; ``index`` is a Python int in
-    the port's cache (a scalar int32 in the reference's).  Dense: ``k`` and
-    ``v`` per layer.  ssm: each Mamba2 layer's f32 SSD state ``ssm_h`` and
-    conv tail ``ssm_conv``.  Hybrid: both, Mamba2 layers on (group, layer)
-    and ``k``/``v`` per group."""
+    the port's cache (a scalar int32 in the reference's).  Dense, moe, vlm:
+    ``k`` and ``v`` per layer.  ssm: each Mamba2 layer's f32 SSD state
+    ``ssm_h`` and conv tail ``ssm_conv``.  Hybrid: both, Mamba2 layers on
+    (group, layer) and ``k``/``v`` per group."""
     _check_family(cfg, "init_cache_specs")
     kv, dh = cfg.n_kv_heads, cfg.d_head
     lead = _groups(cfg) if cfg.family == "hybrid" else (cfg.n_layers,)
     specs = {}
-    if cfg.family != "dense":
+    if cfg.family in ("ssm", "hybrid"):
         conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
         specs["ssm_h"] = CacheSpec(lead + (batch, cfg.ssm_heads, cfg.ssm_state,
                                            cfg.ssm_head_dim), torch.float32)
@@ -215,13 +239,12 @@ def init_cache(cfg: Config, batch: int, max_seq: int, dtype=torch.bfloat16,
 
 
 def _attn_block_decode(x, lp, cfg: Config, ck, cv, index, positions):
-    """An attention + SwiGLU block on one token; writes its K and V into
+    """An attention + FFN block on one token; writes its K and V into
     ``ck``/``cv`` at ``index``, in place."""
     a_out, _, _ = att.attn_decode(rms_norm(x, lp["ln1"]), lp["attn"], cfg,
                                   ck, cv, index, positions)
     h = x + a_out
-    z = rms_norm(h, lp["ln2"])
-    return h + swiglu(z, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+    return h + _ffn(rms_norm(h, lp["ln2"]), lp, cfg)
 
 
 def _mamba_decode(x, lp, cfg: Config, cache, idx):
@@ -246,8 +269,7 @@ def decode_step(params, cfg: Config, cache, token, positions=None):
     x = _embed(params, cfg, token)                      # (B, 1, D)
     index = int(cache["index"])
     if positions is None:
-        positions = torch.full((token.shape[0], 1), index, dtype=torch.int32,
-                               device=x.device)
+        positions = default_positions(cfg, token.shape[0], 1, x.device) + index
     new = {"index": index + 1}
     convs = []
     for kind, idx, lp, lcfg in _layers(params, cfg):

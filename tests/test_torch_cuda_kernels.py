@@ -276,6 +276,10 @@ def _qkv(seed, b, hq, hkv, s, sk, d, dtype, layout):
     (1, 4, 2, 150, 150, 24, False, "bhsd"),    # D = 24, padded to 32
     (1, 32, 8, 256, 256, 128, True, "bshd"),   # qwen3-4b heads, GQA 4
     (1, 15, 5, 200, 200, 64, True, "bshd"),    # smollm-360m heads, GQA 3
+    (1, 32, 4, 256, 256, 128, True, "bshd"),   # qwen3-moe heads, GQA 8
+    (1, 20, 20, 1500, 1500, 64, False, "bshd"),  # whisper encoder, ragged
+    (1, 20, 20, 64, 1500, 64, False, "bshd"),  # whisper cross-attention
+    (4, 20, 20, 1, 1500, 64, False, "bshd"),   # whisper cross, one token
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])

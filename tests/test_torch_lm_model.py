@@ -28,6 +28,7 @@ from repro_torch import configs as C  # noqa: E402
 from repro_torch.convert import (cache_from_numpy,  # noqa: E402
                                  cache_to_numpy, lm_params_from_numpy,
                                  lm_params_to_numpy)
+from repro_torch.models import common  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.models.model import build  # noqa: E402
@@ -190,22 +191,52 @@ def test_full_lm_specs_shapes_match_reference():
     assert 2.0e9 < n_params < 2.2e9
 
 
-@pytest.mark.parametrize("name", sorted(C.PENDING))
-def test_unported_architectures_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md §1, LM item \d"):
-        C.get(name)
-
-
 @pytest.mark.parametrize("name", ["granite-8b", "qwen3-4b", "smollm-360m",
-                                  "deepseek-coder-33b", "mamba2-2.7b"])
+                                  "deepseek-coder-33b", "mamba2-2.7b",
+                                  "qwen3-moe-30b-a3b", "arctic-480b",
+                                  "qwen2-vl-72b", "whisper-large-v3"])
 def test_ported_architectures_resolve(name):
-    """The dense and ssm architectures resolve to their published config;
-    every architecture the reference serves is either ported or pending."""
+    """Every architecture the reference serves resolves to its published
+    config, of the reference's family."""
     assert C.get(name).name == name
-    assert name not in C.PENDING
-    assert sorted(RC.ARCHS) == sorted(C.ARCHS)
-    assert all((a in C.PENDING) != (a in C._MODULES) for a in RC.ARCHS)
+    assert C.get(name).family == RC.get(name).family
+    assert sorted(RC.ARCHS) == sorted(C.ARCHS) == sorted(C._MODULES)
+
+
+def test_unknown_architecture_raises():
+    with pytest.raises(KeyError, match="unknown architecture"):
+        C.get("gpt-2")
+
+
+def test_init_params_draws_a_large_leaf_slice_by_slice(monkeypatch):
+    """A leaf above ``WHOLE_DRAW_BYTES`` of f32 is drawn in slices of its
+    leading axis of at most ``SLICE_DRAW_BYTES``, in order, straight into
+    its tensor; a leaf under it is drawn whole, as before."""
+    monkeypatch.setattr(common, "WHOLE_DRAW_BYTES", 4 * 6 * 40 * 30)
+    monkeypatch.setattr(common, "SLICE_DRAW_BYTES", 4 * 3 * 40 * 30)
+    specs = {"big": common.P_((7, 40, 30)), "small": common.P_((6, 40, 30),
+                                                                init="small")}
+    draws = []
+    real = torch.randn
+
+    def randn(shape, **kw):
+        draws.append(tuple(shape))
+        return real(shape, **kw)
+
+    monkeypatch.setattr(torch, "randn", randn)
+    got = common.init_params(specs, torch.Generator().manual_seed(5),
+                             torch.bfloat16, device="cpu")
+    # sorted-key order: "big" in slices of 3, 3 and 1 rows, then "small"
+    assert draws == [(3, 40, 30), (3, 40, 30), (1, 40, 30), (6, 40, 30)]
+    assert got["big"].shape == (7, 40, 30) and got["big"].dtype == torch.bfloat16
+    gen = torch.Generator().manual_seed(5)
+    want = torch.cat([real((n, 40, 30), generator=gen) * 0.02
+                      for n in (3, 3, 1)]).to(torch.bfloat16)
+    assert torch.equal(got["big"], want)
+    assert torch.equal(got["small"],
+                       (real((6, 40, 30), generator=gen) * 0.006
+                        ).to(torch.bfloat16))
+    assert abs(got["big"].float().std().item() - 0.02) < 1e-3
 
 
 def test_decode_past_a_full_cache_raises():
