@@ -73,7 +73,22 @@ checks.  Last, Whisper-large-v3 (encdec) at full width and depth: 4 x 1,500
 stub frame embeddings encoded through the flash kernel, the cross K/V of
 every decoder layer, the teacher-forced decoder over 64 tokens and as many
 decode steps (cross-attention through the kernel), 64 greedy steps, held
-the same ways.  Each phase
+the same ways.  Then it trains (``train`` phase): Qwen3-4B at its
+published widths and depth, bf16 weights from ``SEED``, f32 AdamW moments,
+remat "nothing", five steps of ``python -m repro_torch.launch.train``'s
+``main`` on 4 x 2,048-token ``SyntheticLM`` batches (the attention site
+runs its plain version under autograd, twice a layer with the recompute),
+the validation loss through the flash kernel against the plain versions
+within twice the loss's own bf16 floor, and one profiled step with plain
+attention's share of its device time; one f32 step of every architecture's
+smoke config on the card against the same step on the CPU; and the
+launcher killed with ``os._exit(42)`` and resumed in subprocesses, bit for
+bit.  Every profiled trace must be whole (``trace_complete``: each kernel
+launch the runtime recorded has its device kernel; pad launches at both
+ends absorb the records the profiler drops at a trace's edges), or is
+taken again, and after three incomplete traces the run fails.  ``python3 chip_smoke.py train`` (or ``kernels``, ``wrappers``,
+``lm_kernels``, ``ite``, ``vqe``) runs those phases alone and prints no
+result line.  Each phase
 prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
@@ -81,6 +96,7 @@ outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -88,6 +104,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -281,15 +298,19 @@ PEAK_BYTES = 3.35e12
 FLUSH_BYTES = 128 * 2**20
 # Cycles the card sleeps before each cold-L2 call (about 1 ms at 1.98 GHz).
 SLEEP_CYCLES = 2_000_000
-# Late in a full run on the H100 a profiled Whisper encode's trace missed
-# all the kernels of one or two of its 32 layers (in four runs; waits of
-# 0.1 s before and after the work did not help).  Its trace therefore
-# starts with TRACE_PREROLL_KERNELS small kernels of its own, whose loss
-# costs nothing, and is taken again while incomplete; every LM trace waits
-# TRACE_MARGIN_S at both ends.
-TRACE_PREROLL_KERNELS = 1000
-TRACE_MARGIN_S = 0.1
+# Every trace is held to trace_complete: each kernel launch the runtime
+# recorded must have its device kernel (the same correlation id).  On the
+# H100 (80GB HBM3 at 700 W) a long trace loses the device records of its
+# first few launches (1 to 15 in tools/trace_probe.py's traces of 20,000
+# to 94,000 launches, 5 and 6 of a c64 norm's 103,934), and now and then
+# of its last ones: Kineto counts them "Out-of-range" in its log, as many
+# as were lost, and idle margins of 0.25 to 1 s before the work did not
+# save them.  So every trace starts and ends with TRACE_PAD_KERNELS
+# launches of a small kernel that absorb the loss, and the work's launches
+# between them must all have their kernels; an incomplete trace is taken
+# again, at most TRACE_ATTEMPTS times in all, and then fails the run.
 TRACE_ATTEMPTS = 3
+TRACE_PAD_KERNELS = 1000
 
 TOL_F32 = 1e-5           # kernel vs plain, relative Frobenius, f32
 TOL_BF16 = 2e-2          # bf16 multiplicands vs f32 (kernel_bf16_gemm budget)
@@ -348,6 +369,33 @@ LM_FLOOR_HELD = ("zamba2-2.7b", "qwen3-4b", "mamba2-2.7b")
 # width and depth: allclose with rtol = atol = 2e-2, the contract of
 # tests/test_models_smoke.py
 TOL_DECODE = 2e-2
+# LM training (train phase): Qwen3-4B at its published widths and depth,
+# bf16 weights from SEED (lm_serve's), f32 AdamW moments, remat "nothing",
+# TRAIN_STEPS steps of the launcher on SyntheticLM batches of TRAIN_BATCH x
+# TRAIN_SEQ tokens (TRAIN_BATCH_CUT if that does not fit the card).
+TRAIN_ARCH = "qwen3-4b"
+TRAIN_BATCH = 4
+TRAIN_BATCH_CUT = 2
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 5
+# The launcher's default learning rate (1e-3, no warmup) drove Qwen3-4B's
+# loss from 12.4 up to 15.3 in five steps (chip, a probe run).
+TRAIN_LR = 1e-4
+# One f32 step of every architecture's smoke config, card against CPU:
+# loss and each gradient leaf, relative (Frobenius).
+TOL_TRAIN_LOSS = 1e-5
+TOL_TRAIN_GRAD = 1e-4
+TRAIN_SMOKE_SEQ = 32
+# The reference test's chaos recipe (tests/test_fault_tolerance.py): 16
+# steps, a checkpoint every 5, killed after step 12, resumed from 10.
+TRAIN_CHAOS = ("--arch", "smollm-360m", "--smoke", "--batch", "4", "--seq",
+               "32", "--checkpoint-every", "5", "--steps", "16")
+TRAIN_CHAOS_KILL = 12
+# Plain attention's share of a profiled step: the device time of these ops
+# (in the dense model only attention runs batched matmuls, softmax and
+# masks), forward, recompute and backward.
+PLAIN_ATTENTION_OPS = ("aten::bmm", "aten::_softmax",
+                       "aten::_softmax_backward_data", "aten::masked_fill")
 
 
 class CheckFailed(Exception):
@@ -750,52 +798,139 @@ def t1_flip_tol(xs):
     return max(TOL_F32, 2.0 ** -8 * (4.0 / (b * F * g * p * c * h * k)) ** 0.5)
 
 
-def warm_profiler(torch, attempts=5) -> int:
-    """Take throwaway traces of a few elementwise kernels until one shows a
-    device event (at most ``attempts``), before any trace that is checked:
-    the first traces of a run have come back without device events on the
-    H100 (three in a row, once).  Returns
-    the number of traces taken, 0 if none showed a device event."""
+# The runtime and driver calls that launch a device kernel.
+LAUNCH_CALL = re.compile(r"^cu(da)?Launch(Cooperative)?Kernel")
+
+
+def _trace_events(prof):
+    return prof.profiler.kineto_results.events()
+
+
+def _is_device(evt) -> bool:
+    return str(evt.device_type()).endswith("CUDA")
+
+
+def _launches_and_kernels(prof):
+    """(a trace's kernel launch records, the runtime's ``cudaLaunchKernel``,
+    the driver's ``cuLaunchKernel`` and their variants, as (host start ns,
+    correlation id) in the order of their start; the trace's device
+    events by correlation id)."""
+    launches, device = [], {}
+    for evt in _trace_events(prof):
+        if _is_device(evt):
+            device[evt.correlation_id()] = evt
+        elif LAUNCH_CALL.match(evt.name()):
+            launches.append((evt.start_ns(), evt.correlation_id()))
+    return sorted(launches), device
+
+
+def trace_complete(prof, pad=0) -> list:
+    """The kernel launches of a torch.profiler trace that are left without
+    a device kernel: the correlation ids of launch records that no device
+    event of the trace carries, leaving out the first and the last ``pad``
+    launches (see :func:`traced`).  Empty when the trace is whole."""
+    launches, device = _launches_and_kernels(prof)
+    return [c for _, c in launches[pad:len(launches) - pad]
+            if c not in device]
+
+
+def trace_record(prof, pad=0) -> dict:
+    """A trace's launches between its ``pad`` first and last ones; where
+    those lost their kernel, how many and where in launch order (first
+    and last index); how many of the pads lost theirs; and the clock skew:
+    the most that a kernel's device start precedes its own launch call's
+    start on the host clock, in microseconds."""
+    launches, device = _launches_and_kernels(prof)
+    work = launches[pad:len(launches) - pad]
+    lost = [i for i, (_, c) in enumerate(work) if c not in device]
+    pads = launches[:pad] + launches[len(launches) - pad:]
+    skew = max([0] + [t - device[c].start_ns() for t, c in launches
+                      if c in device])
+    out = {"launches": len(work),
+           "pads_lost": sum(c not in device for _, c in pads),
+           "clock_skew_us": skew / 1e3}
+    if lost:
+        out.update(lost=len(lost), first_lost=lost[0], last_lost=lost[-1])
+    return out
+
+
+def trace_kernels(prof, pad=0) -> dict:
+    """Device time by kernel name, {name: [calls, device us]}, of every
+    device event of a trace but the ``pad`` first and last launches'."""
+    launches, device = _launches_and_kernels(prof)
+    pads = {c for _, c in launches[:pad] + launches[len(launches) - pad:]}
+    out = {}
+    for c, evt in device.items():
+        if c in pads:
+            continue
+        row = out.setdefault(evt.name(), [0, 0.0])
+        row[0] += 1
+        row[1] += evt.duration_ns() / 1e3
+    return out
+
+
+def traced(torch, fn, what, cpu=True):
+    """``fn()`` under torch.profiler (CPU and CUDA activities, or CUDA
+    alone) between two runs of TRACE_PAD_KERNELS one-kernel launches,
+    held to :func:`trace_complete` over the work's launches.  An
+    incomplete trace is taken again, at most TRACE_ATTEMPTS times in all;
+    then the run fails.  Returns (device time by kernel of the work,
+    :func:`trace_kernels`; wall seconds of the work; the trace's record:
+    :func:`trace_record` of the kept trace, the attempts it took and the
+    records of the incomplete ones; the profile)."""
     from torch.profiler import ProfilerActivity, profile
-    x = torch.ones(1 << 20, device="cuda")
-    for i in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                x.mul_(1.0)
+    activities = ([ProfilerActivity.CPU] if cpu else []) + [
+        ProfilerActivity.CUDA]
+    pad = torch.zeros(1024, dtype=torch.uint8, device="cuda")
+    incomplete = []
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            for _ in range(TRACE_PAD_KERNELS):
+                pad.add_(1)
             torch.cuda.synchronize()
-        if any(str(evt.device_type).endswith("CUDA")
-               for evt in prof.key_averages()):
-            return i + 1
-    return 0
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for _ in range(TRACE_PAD_KERNELS):
+                pad.add_(1)
+            torch.cuda.synchronize()
+        record = trace_record(prof, TRACE_PAD_KERNELS)
+        if record["launches"] and not trace_complete(prof, TRACE_PAD_KERNELS):
+            return (trace_kernels(prof, TRACE_PAD_KERNELS), wall,
+                    {"trace": record, "trace_attempts": attempt,
+                     "trace_incomplete": incomplete}, prof)
+        incomplete.append(record)
+    raise CheckFailed(f"{what}: {TRACE_ATTEMPTS} traces incomplete: "
+                      f"{incomplete}")
 
 
-def profiled_kernels(torch, fn, calls, attempts=3):
+def warm_profiler(torch) -> dict:
+    """One throwaway trace of a few kernels before any trace that is read,
+    so that the profiler's one-time start-up (seconds on the H100) falls
+    here and not in a measured phase; its :func:`traced` record."""
+    x = torch.ones(1 << 20, device="cuda")
+
+    def work():
+        for _ in range(10):
+            x.mul_(1.0)
+    return traced(torch, work, "warm_profiler")[2]
+
+
+def profiled_kernels(torch, fn, calls):
     """Device kernels of ``calls`` calls of ``fn`` under torch.profiler:
-    {name: (count, mean device ms)}.  A trace with no device event at all
-    is taken again, up to ``attempts`` times: the first profiled call of a
-    run once came back empty on the H100 (the calls' launches counted, the
-    profiler saw none of them)."""
-    from torch.profiler import ProfilerActivity, profile
+    {name: (count, mean device ms)}, from a trace that
+    :func:`trace_complete` finds whole."""
     fn()
     torch.cuda.synchronize()
-    out = {}
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        for evt in prof.key_averages():
-            if not str(evt.device_type).endswith("CUDA"):
-                continue
-            us = getattr(evt, "self_device_time_total", None)
-            if us is None:
-                us = evt.self_cuda_time_total
-            out[evt.key] = (evt.count, us / 1e3 / max(evt.count, 1))
-        if out:
-            break
-    return out
+
+    def work():
+        for _ in range(calls):
+            fn()
+    kernels, _, _, _ = traced(torch, work, f"profiled_kernels x{calls}")
+    return {name: (count, us / 1e3 / count)
+            for name, (count, us) in kernels.items()}
 
 
 def phase_wrappers(torch):
@@ -1344,7 +1479,6 @@ def phase_profile(torch, state):
     """Device time by kernel for one c64 kernel-mode norm of the main-path
     state (torch.profiler), and the device's busy share of the wall time.
     Runs after the main path's counts were read."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.bmps import BMPS, norm_squared
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.gram import gram_complex
@@ -1356,14 +1490,12 @@ def phase_profile(torch, state):
     try:
         norm_squared(state, option)
         torch.cuda.synchronize()
-        gram_complex.launches = tall_apply_complex.launches = 0
-        Z.reset_kernel_launches()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+        def norm():
+            gram_complex.launches = tall_apply_complex.launches = 0
+            Z.reset_kernel_launches()
             norm_squared(state, option)
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        kernels, wall, trace, _ = traced(torch, norm, "profile norm_squared")
     finally:
         dispatch.set_kernel_backend(prev)
     emit({"phase": "profile", "what": "norm_squared, complex64, kernel mode",
@@ -1371,23 +1503,18 @@ def phase_profile(torch, state):
               "gram_complex": gram_complex.launches,
               "tall_apply_complex": tall_apply_complex.launches,
               **Z.kernel_launches()},
-          **device_profile(prof, wall, focus=("zipup",))})
+          **trace, **device_profile(kernels, wall, focus=("zipup",))})
 
 
-def device_profile(prof, wall: float, focus=()):
-    """Device time by kernel from a torch.profiler run over ``wall``
-    seconds, and the device's busy share of that wall time; every kernel
-    whose name holds one of the ``focus`` words is listed as well."""
-    rows = []
-    for evt in prof.key_averages():
-        if not str(evt.device_type).endswith("CUDA"):
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        rows.append((us, evt.key, evt.count))
-    rows.sort(reverse=True)
+def device_profile(kernels, wall: float, focus=()):
+    """Device time by kernel (``kernels``, as :func:`traced` returns them)
+    over ``wall`` seconds of work, and the device's busy share of that
+    wall time; every kernel whose name holds one of the ``focus`` words
+    is listed as well."""
+    rows = sorted(((us, name, count) for name, (count, us)
+                   in kernels.items()), reverse=True)
     device_s = sum(r[0] for r in rows) / 1e6
+
     def row(us, k, c):
         return {"name": k[:100], "calls": c, "device_ms": us / 1e3}
 
@@ -1949,7 +2076,6 @@ def profile_trotter_step(torch, label, state, obs, update):
     ``ite.trotter_step`` (the step ``ite_run`` takes) under torch.profiler,
     after one unprofiled step whose environments it carries on, with the
     kernels' counts."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.ite import trotter_moments, trotter_step
     from repro_torch.core.keys import TorchKey
     from repro_torch.kernels import dispatch
@@ -1963,22 +2089,20 @@ def profile_trotter_step(torch, label, state, obs, update):
         state, key, envs, since = trotter_step(state, moments, update,
                                                TorchKey(SEED))
         torch.cuda.synchronize()
-        gram_complex.launches = tall_apply_complex.launches = 0
-        Z.reset_kernel_launches()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+        def step():
+            gram_complex.launches = tall_apply_complex.launches = 0
+            Z.reset_kernel_launches()
             trotter_step(state, moments, update, key, envs, since)
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        kernels, wall, trace, _ = traced(torch, step, f"ite_profile {label}")
     finally:
         dispatch.set_kernel_backend(prev)
     emit({"phase": "ite_profile", "what": label,
           "launches_per_step": {
               "gram_complex": gram_complex.launches,
               "tall_apply_complex": tall_apply_complex.launches,
-              **Z.kernel_launches()},
-          **device_profile(prof, wall, focus=("gram_tile", "gram_reduce",
+              **Z.kernel_launches()}, **trace,
+          **device_profile(kernels, wall, focus=("gram_tile", "gram_reduce",
                                               "tall_apply_kernel",
                                               "zipup"))})
 
@@ -2108,25 +2232,6 @@ def logits_gap(torch, got, want):
 
 
 @contextlib.contextmanager
-def lm_trace(torch, preroll_kernels=0):
-    """A CPU and CUDA ``torch.profiler`` trace whose work starts
-    TRACE_MARGIN_S into it, after ``preroll_kernels`` small elementwise
-    kernels, and ends TRACE_MARGIN_S before its end, the card idle at both
-    ends."""
-    from torch.profiler import ProfilerActivity, profile
-    x = torch.ones(1024, device="cuda")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(TRACE_MARGIN_S)
-        for _ in range(preroll_kernels):
-            x.mul_(1.0)
-        torch.cuda.synchronize()
-        yield prof
-        torch.cuda.synchronize()
-        time.sleep(TRACE_MARGIN_S)
-
-
-@contextlib.contextmanager
 def sites_in(mode):
     """Every kernel site in ``mode`` ("kernel", "dense" or "auto")."""
     from repro_torch.kernels import dispatch
@@ -2244,7 +2349,8 @@ def draw_params(torch, bundle, out):
 
 def attention_counters(dispatch):
     return {k: v for k, v in dispatch.dispatch_stats().items()
-            if k.endswith(("_attention_calls", "_ssd_calls"))}
+            if k.endswith(("_attention_calls", "_ssd_calls",
+                           "_attention_grad_calls", "_ssd_grad_calls"))}
 
 
 def greedy_agree(a, b) -> str:
@@ -2359,13 +2465,14 @@ def phase_lm_serve(torch, np, arch):
                 r.keep.sum().item() for r in routes) / sum(
                 r.keep.numel() for r in routes)
         del routes
-        with lm_trace(torch) as prof:
-            _, _, wall = prefill_in(torch, T, "kernel", params, cfg, tokens,
-                                    max_seq, positions=pos(0, LM_PROMPT))
+        kernels, wall, trace, _ = traced(
+            torch, lambda: prefill_in(torch, T, "kernel", params, cfg, tokens,
+                                      max_seq, positions=pos(0, LM_PROMPT)),
+            f"lm_profile {arch} prefill")
         prof_line = {"phase": "lm_profile", "arch": arch,
                      "what": f"one kernel-mode prefill, {LM_BATCH} x "
-                     f"{LM_PROMPT} tokens, bf16",
-                     **device_profile(prof, wall, focus=("ssd_", "flash_"))}
+                     f"{LM_PROMPT} tokens, bf16", **trace,
+                     **device_profile(kernels, wall, focus=("ssd_", "flash_"))}
         for word in ("ssd_", "flash_"):
             prof_line[f"{word}device_ms"] = sum(
                 r["device_ms"] for r in prof_line["focus"] if word in r["name"])
@@ -2380,14 +2487,15 @@ def phase_lm_serve(torch, np, arch):
         step_cache = {k: v.clone() if torch.is_tensor(v) else v
                       for k, v in cache.items()}
         step_cache["index"] = LM_PROMPT
-        with lm_trace(torch) as prof:
-            t0 = time.perf_counter()
-            bundle.serve_step(params, step_cache, tokens[:, -1:],
-                              pos(LM_PROMPT, LM_PROMPT + 1))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        # the step writes its K/V at LM_PROMPT, the same slot on a retry
+        kernels, wall, trace, _ = traced(
+            torch, lambda: bundle.serve_step(params, step_cache,
+                                             tokens[:, -1:],
+                                             pos(LM_PROMPT, LM_PROMPT + 1)),
+            f"lm_profile {arch} decode step")
         emit({"phase": "lm_profile", "arch": arch, "what": f"one decode "
-              f"step, batch {LM_BATCH}, bf16", **device_profile(prof, wall)})
+              f"step, batch {LM_BATCH}, bf16", **trace,
+              **device_profile(kernels, wall)})
         del step_cache, cache, logits2
         dense, _, out["prefill_dense_s"] = prefill_in(
             torch, T, "dense", params, cfg, tokens, max_seq,
@@ -2659,30 +2767,20 @@ def phase_lm_serve_encdec(torch, np, arch):
         del cache
 
         # one profiled encode, then the cross K/V fill (no flash launch)
-        # that a served request runs next.  A trace is complete when it
-        # holds the encode's 32 SwiGLU silu kernels; an incomplete one is
-        # taken again, up to TRACE_ATTEMPTS times (see TRACE_MARGIN_S)
-        for attempt in range(1, TRACE_ATTEMPTS + 1):
-            with sites_in("kernel"):
-                with lm_trace(torch, TRACE_PREROLL_KERNELS) as prof:
-                    t0 = time.perf_counter()
-                    enc = E.encode(params, cfg, frames)
-                    for i in range(cfg.n_layers):
-                        cross_kv(enc, take(params["dec"]["xattn"], i), cfg)
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t0
-            del enc
-            prof_line = {"phase": "lm_profile", "arch": arch,
-                         "what": f"one kernel-mode encode, {LM_BATCH} x "
-                         f"{cfg.enc_frames} frames, and the cross K/V of its "
-                         f"{cfg.n_layers} decoder layers, bf16",
-                         "trace_attempt": attempt,
-                         **device_profile(prof, wall,
-                                          focus=("flash_", "silu_"))}
-            silu = sum(r["calls"] for r in prof_line["focus"]
-                       if "silu_" in r["name"])
-            if silu == cfg.n_enc_layers:
-                break
+        # that a served request runs next
+        def encode_and_cross_kv():
+            enc = E.encode(params, cfg, frames)
+            for i in range(cfg.n_layers):
+                cross_kv(enc, take(params["dec"]["xattn"], i), cfg)
+
+        with sites_in("kernel"):
+            kernels, wall, trace, _ = traced(torch, encode_and_cross_kv,
+                                       f"lm_profile {arch} encode")
+        prof_line = {"phase": "lm_profile", "arch": arch,
+                     "what": f"one kernel-mode encode, {LM_BATCH} x "
+                     f"{cfg.enc_frames} frames, and the cross K/V of its "
+                     f"{cfg.n_layers} decoder layers, bf16", **trace,
+                     **device_profile(kernels, wall, focus=("flash_",))}
         prof_line["flash_device_ms"] = sum(
             r["device_ms"] for r in prof_line["focus"] if "flash_" in r["name"])
         emit(prof_line)
@@ -2778,7 +2876,6 @@ def phase_vqe(torch, np):
     at the bench's budget, and one profiled value-and-grad step.
     Returns the kernels' launches over the c64 kernel-mode energies and
     the phase's headline numbers (repeated on the ``done`` line)."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.bmps import BMPS
     from repro_torch.core.observable import tfi_hamiltonian
     from repro_torch.core.peps import QRUpdate
@@ -2900,14 +2997,9 @@ def phase_vqe(torch, np):
                       "energy": res.energy, "history": res.history}
 
     # one profiled value-and-grad step
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        value_and_grad()
-        torch.cuda.synchronize()
-    prof_wall = time.perf_counter() - t0
-    profiled = device_profile(prof, prof_wall)
+    kernels, prof_wall, trace, _ = traced(torch, value_and_grad,
+                                    "vqe value-and-grad")
+    profiled = {**trace, **device_profile(kernels, prof_wall)}
     profiled["busy_share_of_unprofiled_step"] = profiled["device_s"] / grad_s
 
     line = {"phase": "vqe", "model": "tfi 3x3, jz=-1, hx=-3.5",
@@ -3042,23 +3134,19 @@ def precision_cases(torch, np, dev):
     return cases, complex(psi[(0,) * 9])
 
 
-def bf16_instantiations(prof):
+def bf16_instantiations(kernels):
     """Calls of the bf16 instantiations of the Gram and tall-apply tile
-    kernels in a torch.profiler run (demangled or mangled names)."""
+    kernels in device time by kernel (``kernels``, as :func:`traced`
+    returns them; demangled or mangled names)."""
     patterns = {
         "gram_tile_kernel<complex,bf16>":
             r"gram_tile_kernel(<true, true>|ILb1ELb1E)",
         "tall_apply_kernel<complex,bf16,·>":
             r"tall_apply_kernel(<true, true, (true|false)>|ILb1ELb1ELb[01]E)",
     }
-    out = {name: 0 for name in patterns}
-    for evt in prof.key_averages():
-        if not str(evt.device_type).endswith("CUDA"):
-            continue
-        for name, pattern in patterns.items():
-            if re.search(pattern, evt.key):
-                out[name] += evt.count
-    return out
+    return {name: sum(count for key, (count, _) in kernels.items()
+                      if re.search(pattern, key))
+            for name, pattern in patterns.items()}
 
 
 def robustness_precision(torch, np):
@@ -3105,19 +3193,18 @@ def robustness_precision(torch, np):
             check(row["exact_vs_statevector"]
                   <= error_budget("amplitude", "exact"),
                   f"exact amplitude vs statevector: {row}")
-    # one kernel-lane case again under the profiler (its trace of a whole
-    # full-update step takes a minute to collect)
-    from torch.profiler import ProfilerActivity, profile
+    # one kernel-lane case again under the profiler, CUDA activity alone
+    # (its trace of a whole full-update step takes a minute to collect)
     prev = dispatch.set_kernel_backend("kernel")
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            cases["contract_twolayer"]("mixed", True)
-            torch.cuda.synchronize()
+        kernels, _, trace, _ = traced(
+            torch, lambda: cases["contract_twolayer"]("mixed", True),
+            "robustness precision_profile", cpu=False)
     finally:
         dispatch.set_kernel_backend(prev)
-    prof_counts = bf16_instantiations(prof)
+    prof_counts = bf16_instantiations(kernels)
     emit({"phase": "robustness", "part": "precision_profile",
-          "what": "contract_twolayer, mixed, kernel mode",
+          "what": "contract_twolayer, mixed, kernel mode", **trace,
           "bf16_instantiations": prof_counts})
     check(all(v > 0 for v in prof_counts.values()),
           f"bf16 instantiations missing from the profile: {prof_counts}")
@@ -3528,6 +3615,332 @@ def phase_small_reference(torch, np):
     check(max(errs.values()) <= TOL_SMALL, f"3x3 vs statevector: {errs}")
 
 
+# ---------------------------------------------------------------------------
+# LM training (train phase)
+# ---------------------------------------------------------------------------
+
+def train_launcher(torch, batch):
+    """TRAIN_STEPS steps of ``repro_torch.launch.train.main`` on
+    TRAIN_ARCH at ``batch`` x TRAIN_SEQ tokens; (params after the last
+    step, the launcher's step records, the dispatch counters, the flash
+    kernel's launches, the peak memory, the seconds of ``main``)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import train as L
+
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+            "--batch", str(batch), "--seq", str(TRAIN_SEQ),
+            "--lr", str(TRAIN_LR), "--seed", str(SEED), "--device", "cuda"]
+    with tempfile.TemporaryDirectory() as d:
+        log = os.path.join(d, "train.jsonl")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_dispatch_stats()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        params = L.main(argv + ["--log-file", log])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with open(log) as f:
+            recs = [json.loads(line) for line in f]
+    return (params, recs, attention_counters(dispatch),
+            flash_attention.launches, torch.cuda.max_memory_allocated(),
+            seconds)
+
+
+def plain_attention_ms(prof) -> float:
+    """Device ms of PLAIN_ATTENTION_OPS in a profile (each op's own
+    kernels and those of the ops it calls)."""
+    total = 0.0
+    for evt in prof.key_averages():
+        if evt.key in PLAIN_ATTENTION_OPS:
+            us = getattr(evt, "device_time_total", None)
+            total += (evt.cuda_time_total if us is None else us) / 1e3
+    return total
+
+
+def train_qwen(torch, np):
+    """Qwen3-4B trained by the launcher, then, on step 1's batch with the
+    trained weights, the validation loss through the flash kernel and
+    through the plain versions, and one profiled step.  Returns the
+    validation loss's kernel launches."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import step_batch
+    from repro_torch.models.model import build
+    from repro_torch.optim.adamw import adamw_init
+
+    cfg = get(TRAIN_ARCH)
+    out = {"phase": "train", "part": "launcher", "arch": TRAIN_ARCH,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads], "vocab": cfg.vocab,
+           "param_dtype": str(cfg.param_dtype).replace("torch.", ""),
+           "moments": "float32", "remat": cfg.remat,
+           "remat_policy": cfg.remat_policy, "microbatches": 1,
+           "lr": TRAIN_LR,
+           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "reduced": {}}
+    batch, run = TRAIN_BATCH, None
+    try:
+        run = train_launcher(torch, batch)
+    except torch.cuda.OutOfMemoryError as e:
+        out["batch_oom"] = str(e)[:300]
+    if run is None:
+        # out of the handler, so the failed run's frames are gone
+        gc.collect()
+        torch.cuda.empty_cache()
+        batch = TRAIN_BATCH_CUT
+        out["reduced"]["batch"] = [TRAIN_BATCH, batch]
+        run = train_launcher(torch, batch)
+    params, recs, counters, launches, peak, main_s = run
+    tokens = batch * TRAIN_SEQ
+    n_params = sum(t.numel() for t in _leaves_of(params))
+    step_s = [r["sec"] for r in recs]
+    median = statistics.median(step_s[1:])
+    bound_s = 6 * n_params * tokens / PEAK_BF16_TC_FLOPS
+    out.update(batch=batch, tokens_per_step=tokens, params=n_params,
+               main_s=main_s, s_per_step=median, step1_s=step_s[0],
+               step_s=step_s, tokens_per_s=tokens / median,
+               bound_s=bound_s, bound="6 x params x tokens FLOPs at "
+               "989 TFLOP/s bf16", share_of_bound=bound_s / median,
+               max_memory_allocated=peak,
+               losses=[r["loss"] for r in recs],
+               grad_norms=[r["grad_norm"] for r in recs],
+               counters=counters, flash_launches=launches,
+               nvidia_smi=nvidia_smi_line())
+    emit(out)
+    per_step = 2 * cfg.n_layers          # the forward and the recompute
+    check(len(recs) == TRAIN_STEPS and all(
+        math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+        for r in recs), f"train: step records {recs}")
+    check(counters["dense_attention_grad_calls"] == per_step * TRAIN_STEPS
+          and counters["kernel_attention_calls"] == 0 and launches == 0,
+          f"train: {TRAIN_STEPS} steps ran the attention site {counters} "
+          f"and the flash kernel {launches} times; expected "
+          f"{per_step} differentiated dense calls a step, no kernel")
+
+    # validation loss on step 1's batch with the trained weights: through
+    # the flash kernel, through the plain versions, and (the loss's own
+    # bf16 floor) the plain versions with f32 activations on the same
+    # bf16 weights
+    bundle = build(cfg)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=batch, seed=SEED))
+    vbatch = step_batch(cfg, data, 0, torch.device("cuda"))
+    val = {"phase": "train", "part": "validation", "arch": TRAIN_ARCH,
+           "batch": batch, "what": "loss_fn under no_grad on step 1's "
+           f"batch after {TRAIN_STEPS} steps"}
+    with torch.no_grad():
+        dispatch.reset_dispatch_stats()
+        flash_attention.launches = 0
+        with sites_in("kernel"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss_k = bundle.loss_fn(params, vbatch).item()
+            val["kernel_s"] = time.perf_counter() - t0
+        val_launches = {"flash_attention": flash_attention.launches}
+        val["counters"] = attention_counters(dispatch)
+        with sites_in("dense"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss_d = bundle.loss_fn(params, vbatch).item()
+            val["dense_s"] = time.perf_counter() - t0
+            cfg32 = dataclasses.replace(cfg, act_dtype=torch.float32)
+            loss_32 = build(cfg32).loss_fn(params, vbatch).item()
+    floor = abs(loss_d - loss_32) / abs(loss_32)
+    gap = abs(loss_k - loss_d) / abs(loss_d)
+    val.update(loss_kernel=loss_k, loss_dense=loss_d, loss_f32=loss_32,
+               launches=val_launches, kernel_vs_dense=gap, bf16_floor=floor,
+               bound=LM_BF16_FLOORS * floor,
+               bound_reason="each bf16 loss lies about one bf16 floor (the "
+               "plain loss against the same bf16 weights read by f32 "
+               "activations) from the f32 loss, so the two bf16 losses "
+               "differ by at most twice it, as lm_serve bounds logits")
+    emit(val)
+    check(val_launches["flash_attention"] == cfg.n_layers
+          and val["counters"]["kernel_attention_calls"] == cfg.n_layers,
+          f"train validation: flash launches {val_launches}, counters "
+          f"{val['counters']}, expected {cfg.n_layers}")
+    check(all(map(math.isfinite, (loss_k, loss_d, loss_32)))
+          and gap <= LM_BF16_FLOORS * floor,
+          f"train validation: kernel loss {loss_k} vs dense {loss_d}: "
+          f"{gap} > {LM_BF16_FLOORS} x floor {floor}")
+
+    # one profiled step (the trained weights and fresh moments)
+    opt = adamw_init(params)
+    kernels, wall, trace, prof = traced(
+        torch, lambda: bundle.train_step(params, opt, vbatch, donate=True),
+        "train profile")
+    line = {"phase": "train_profile", "arch": TRAIN_ARCH,
+            "what": f"one training step, {batch} x {TRAIN_SEQ} tokens, bf16, "
+            "remat nothing", **trace,
+            **device_profile(kernels, wall, focus=("softmax", "masked_fill"))}
+    line["plain_attention_ops"] = list(PLAIN_ATTENTION_OPS)
+    line["plain_attention_device_ms"] = plain_attention_ms(prof)
+    line["plain_attention_share"] = (line["plain_attention_device_ms"] / 1e3
+                                     / max(line["device_s"], 1e-9))
+    emit(line)
+    del params, opt, prof
+    torch.cuda.empty_cache()
+    return val_launches
+
+
+def _leaves_of(tree):
+    from repro_torch.models.common import tree_leaves
+    return [t for _, t in tree_leaves(tree)]
+
+
+@contextlib.contextmanager
+def moe_slots(record=None, replay=None, differences=None):
+    """Every ``moe._route`` call made inside appends its ``Route`` to
+    ``record``; with ``replay`` (an earlier run's record, on any device),
+    each call keeps its live routing weights, which carry the router's
+    gradient, and takes that run's slots (expert, slot, kept), moved to its
+    device: the earlier run's expert choices, pinned.  ``differences``
+    collects, per call, the assignments whose live slots differ."""
+    from repro_torch.models import moe
+    route, pinned = moe._route, None if replay is None else iter(replay)
+
+    def hooked(*args, **kwargs):
+        r = route(*args, **kwargs)
+        if pinned is not None:
+            p = next(pinned)
+            e, c, keep = (t.to(r.slot_e.device)
+                          for t in (p.slot_e, p.slot_c, p.keep))
+            if differences is not None:
+                differences.append(int(((e != r.slot_e)
+                                        | (c != r.slot_c)).sum()))
+            r = r._replace(slot_e=e, slot_c=c, keep=keep)
+        if record is not None:
+            record.append(r)
+        return r
+
+    moe._route = hooked
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def train_families(torch, np):
+    """One f32 step of each architecture's smoke config on the card and on
+    the CPU, from the same weights and batch: the loss and every gradient
+    leaf held card against CPU."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import step_batch
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build
+    from repro_torch.optim.adamw import adamw_init
+
+    rows = {}
+    for arch in configs.ARCHS:
+        cfg = dataclasses.replace(configs.get_smoke(arch),
+                                  param_dtype=torch.float32,
+                                  act_dtype=torch.float32)
+        bundle = build(cfg)
+        weights = lm_params_to_numpy(bundle.init(SEED, "cpu"))
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SMOKE_SEQ,
+                                      global_batch=2, seed=SEED))
+        got, routes, diffs = {}, [], []
+        for dev in ("cpu", "cuda"):
+            params = lm_params_from_numpy(weights, device=dev)
+            batch = step_batch(cfg, data, 0, torch.device(dev))
+            with moe_slots(record=routes if dev == "cpu" else None,
+                           replay=routes if dev == "cuda" else None,
+                           differences=diffs):
+                loss, grads = bundle.value_and_grad(params, batch)
+                _, _, metrics = bundle.train_step(params, adamw_init(params),
+                                                  batch)
+            got[dev] = (loss.item(), {p: g.cpu() for p, g in
+                                      tree_leaves(grads)},
+                        metrics["loss"].item())
+        (loss_c, grads_c, step_c), (loss_g, grads_g, step_g) = (
+            got["cpu"], got["cuda"])
+        grad_gaps = {"/".join(p): rel_gap(torch, grads_g[p], grads_c[p])
+                     for p in grads_c}
+        row = {"loss_gap": abs(loss_g - loss_c) / abs(loss_c),
+               "step_loss_gap": abs(step_g - step_c) / abs(step_c),
+               "grad_gap_max": max(grad_gaps.values()),
+               "grad_leaves": len(grad_gaps)}
+        if cfg.family == "moe":
+            row["routes"] = ("pinned to the CPU run's slots (expert, slot, "
+                             "kept) as lm_serve pins them; routing weights "
+                             "live")
+            row["live_slot_differences"] = sum(diffs)
+        rows[arch] = row
+        check(row["loss_gap"] <= TOL_TRAIN_LOSS
+              and row["step_loss_gap"] <= TOL_TRAIN_LOSS
+              and row["grad_gap_max"] <= TOL_TRAIN_GRAD,
+              f"train families {arch}: card vs CPU {row}, worst leaf "
+              f"{max(grad_gaps, key=grad_gaps.get)}")
+    emit({"phase": "train", "part": "families", "what": "one f32 step of "
+          "each smoke config, card vs CPU", "tol_loss": TOL_TRAIN_LOSS,
+          "tol_grad": TOL_TRAIN_GRAD, "archs": rows})
+
+
+def train_chaos(torch):
+    """The launcher killed with os._exit(42) after step TRAIN_CHAOS_KILL
+    and resumed, in subprocesses on the card: the overlapping losses equal
+    the uninterrupted run's bit for bit."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + ([os.environ["PYTHONPATH"]] if "PYTHONPATH" in os.environ
+                 else [])))
+
+    def run(args, rc=0):
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CHAOS,
+             "--device", "cuda", *args], env=env, cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        check(res.returncode == rc, f"train chaos {args}: exit "
+              f"{res.returncode}, expected {rc}: {res.stderr[-1500:]}")
+        return res
+
+    def losses(path, runs):
+        out = {}
+        with open(path) as f:
+            for rec in map(json.loads, f):
+                runs.append(out.get(rec["step"], rec["loss"]) == rec["loss"])
+                out[rec["step"]] = rec["loss"]
+        return out
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        a, b, ck = (os.path.join(d, n) for n in ("a.jsonl", "b.jsonl", "ck"))
+        run(["--log-file", a])
+        run(["--checkpoint-dir", ck, "--log-file", b, "--simulate-failure",
+             str(TRAIN_CHAOS_KILL)], rc=42)
+        resumed = run(["--checkpoint-dir", ck, "--log-file", b])
+        repeats = []
+        ref, got = losses(a, []), losses(b, repeats)
+    line = {"phase": "train", "part": "chaos", "argv": list(TRAIN_CHAOS),
+            "killed_after_step": TRAIN_CHAOS_KILL,
+            "resumed": "resuming from checkpoint step 10" in resumed.stdout,
+            "steps": len(got), "bitwise": got == ref,
+            "repeated_steps_bitwise": all(repeats),
+            "losses_first_last": [ref.get(0), ref.get(15)],
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    check(line["resumed"] and line["bitwise"] and all(repeats)
+          and len(got) == 16, f"train chaos: {line}")
+
+
+def phase_train(torch, np):
+    """LM training on the card: Qwen3-4B through the launcher, its
+    validation loss through the flash kernel and one profiled step; every
+    architecture's smoke step against the CPU; the launcher's chaos kill
+    and resume.  Returns the flash kernel's launches (the validation
+    loss's)."""
+    launches = train_qwen(torch, np)
+    train_families(torch, np)
+    train_chaos(torch)
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3559,7 +3972,7 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas,
           "no_spill_ptxas": no_spill,
-          "profiler_warm_traces": warm_profiler(torch)})
+          "profiler_warm": warm_profiler(torch)})
 
     phase_s = {"build": build_s}
 
@@ -3568,6 +3981,31 @@ def main() -> int:
         out = phase(*args)
         phase_s[name] = time.perf_counter() - t0
         return out
+
+    only = sys.argv[1:]
+    if only:
+        # a partial run of phases that need no other phase's state; it
+        # prints no result line
+        standalone = {"kernels": (phase_kernels, torch),
+                      "wrappers": (phase_wrappers, torch),
+                      "lm_kernels": (phase_lm_kernels, torch),
+                      "ite": (phase_ite, torch, np),
+                      "vqe": (phase_vqe, torch, np),
+                      "train": (phase_train, torch, np)}
+        unknown = [name for name in only if name not in standalone]
+        if unknown:
+            print(f"chip_smoke: unknown phases {unknown}; standalone "
+                  f"phases: {sorted(standalone)}", file=sys.stderr)
+            return 2
+        try:
+            for name in only:
+                timed(name, *standalone[name])
+        except CheckFailed as e:
+            print(f"chip_smoke: check failed: {e}", file=sys.stderr)
+            return 1
+        emit({"phase": "done", "partial": only, "phase_seconds": phase_s,
+              "seconds": time.perf_counter() - t_start})
+        return 0
 
     try:
         for _, label, count in NO_SPILL_KERNELS:
@@ -3604,6 +4042,8 @@ def main() -> int:
         by_path[ENCDEC_ARCH] = timed(f"lm_serve_{ENCDEC_ARCH}",
                                      phase_lm_serve_encdec, torch, np,
                                      ENCDEC_ARCH)
+        torch.cuda.empty_cache()
+        by_path["train"] = timed("train", phase_train, torch, np)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1

@@ -62,7 +62,9 @@ def _to_host(leaf):
         t = leaf.detach().cpu().resolve_conj().resolve_neg()
         if t.dtype == torch.bfloat16:
             return t.float().numpy(), "bfloat16"
-        arr = t.numpy()
+        # a CPU tensor's numpy view shares its memory: copy it, so that an
+        # update in place (a donated train step) cannot reach the write
+        arr = t.numpy().copy() if leaf.device.type == "cpu" else t.numpy()
     else:
         arr = np.asarray(leaf)
     if arr.dtype.kind not in _NATIVE_KINDS:   # ml_dtypes bf16/fp8 arrays

@@ -13,7 +13,9 @@ tree and a decode cache: nested dicts in the reference's keys and shapes.
 They walk whatever keys the tree holds, so one pair serves every ported
 family: the dense tree (``layers``) and its ``k``/``v`` cache, the ssm tree
 (``ssm_ln``, ``ssm``) and its ``ssm_h``/``ssm_conv`` cache, and the hybrid
-tree and cache, which hold both kinds.
+tree and cache, which hold both kinds.  ``opt_state_from_numpy`` /
+``opt_state_to_numpy`` carry an AdamW state (``mu`` and ``nu`` trees in
+the parameters' keys, and the step ``count``).
 """
 from __future__ import annotations
 
@@ -102,3 +104,22 @@ def cache_to_numpy(cache) -> Dict[str, Any]:
     """Numpy arrays (bfloat16 as float32) and ``index`` as an int32 scalar."""
     return {k: np.asarray(v, np.int32) if k == "index" else _array(v)
             for k, v in cache.items()}
+
+
+def opt_state_from_numpy(state, *, device=None) -> Dict[str, Any]:
+    """Port AdamW state from ``{"mu": tree, "nu": tree, "count": scalar}``
+    of numpy arrays (the reference's ``adamw_init``/``adamw_update``
+    layout); moments keep their dtype, ``count`` is an int32 scalar."""
+    device = resolve_device(device)
+    return {"mu": lm_params_from_numpy(state["mu"], device=device),
+            "nu": lm_params_from_numpy(state["nu"], device=device),
+            "count": torch.tensor(int(np.asarray(state["count"])),
+                                  dtype=torch.int32, device=device)}
+
+
+def opt_state_to_numpy(state) -> Dict[str, Any]:
+    """``{"mu": tree, "nu": tree, "count": int32 scalar}`` of numpy
+    arrays."""
+    return {"mu": lm_params_to_numpy(state["mu"]),
+            "nu": lm_params_to_numpy(state["nu"]),
+            "count": np.asarray(int(state["count"]), np.int32)}

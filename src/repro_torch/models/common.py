@@ -1,5 +1,5 @@
 """Shared model machinery: parameter specs, the model Config, norms,
-SwiGLU and rotary embeddings.
+SwiGLU, rotary embeddings, the training loss and rematerialisation.
 
 Counterpart of ``repro.models.common``.  Parameters are declared as trees
 (nested dicts) of :class:`P_` leaves and drawn by :func:`init_params` from a
@@ -11,11 +11,13 @@ counterpart on one card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as tc
 
 from repro_torch.device import resolve_device
 
@@ -96,6 +98,19 @@ def take(tree, index):
     if isinstance(tree, dict):
         return {k: take(v, index) for k, v in tree.items()}
     return tree[index]
+
+
+def unstack(tree) -> list:
+    """A stacked parameter tree as the list of its trees along the leading
+    axis, views made by one ``torch.unbind`` per leaf.  Under autograd the
+    gradients of all of them come back as one stack per leaf, where
+    indexing each layer with :func:`take` costs a zero-filled copy of the
+    whole stacked leaf per layer."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 # ---------------------------------------------------------------------------
@@ -216,3 +231,57 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
         torch.tensor(sections, device=x.device))          # (half,)
     pos = positions.float()[sec_id]                         # (half, B, S)
     return _rotate(x, pos.movedim(0, -1) * _rope_freqs(half, theta, x.device))
+
+
+# ---------------------------------------------------------------------------
+# Training: loss and rematerialisation
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE: logits (B, S, V) of any float dtype, taken in
+    f32 (logsumexp minus the gold logit); labels (B, S)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of matmuls without batch dimensions, recompute the rest."""
+    return (tc.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else tc.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def checkpoint_policy(cfg: Config) -> Callable:
+    """``cfg.remat_policy`` as the ``context_fn`` of a non-reentrant
+    ``torch.utils.checkpoint``: ``"dots"`` saves the outputs of ``aten.mm``
+    and ``aten.addmm`` (a 3-D activation times a 2-D weight reaches them)
+    and recomputes everything else; any other policy (``"nothing"``) saves
+    only the block's inputs."""
+    if cfg.remat_policy == "dots":
+        return functools.partial(tc.create_selective_checkpoint_contexts,
+                                 _save_dots)
+    return tc.noop_context_fn
+
+
+def remat(fn: Callable, cfg: Config) -> Callable:
+    """``fn`` under one non-reentrant checkpoint with ``cfg``'s policy when
+    ``cfg.remat`` is set and autograd is recording, else ``fn`` itself.
+
+    Non-reentrant: the first forward and the backward's recompute both run
+    with grad enabled on operands that require it, so a kernel site routes
+    both to its dense version (a reentrant checkpoint would run the first
+    forward under no_grad, through the kernel, and recompute densely)."""
+    if not cfg.remat:
+        return fn
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return tc.checkpoint(fn, *args, use_reentrant=False,
+                             context_fn=checkpoint_policy(cfg))
+    return wrapped

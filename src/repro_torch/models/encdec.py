@@ -1,6 +1,6 @@
 """Whisper-style encoder-decoder backbone (the audio frontend is a stub).
 
-Counterpart of ``repro.models.encdec``, for serving.  The encoder takes
+Counterpart of ``repro.models.encdec``, for serving and training.  The encoder takes
 precomputed frame embeddings (B, T, D) (the conv frontend is out of scope,
 as in the reference) and runs non-causal attention + SwiGLU blocks with no
 rotary embedding.  The decoder adds learned positions, causal
@@ -13,7 +13,10 @@ one-token self-attention decode, which stays plain as in
 The decode cache holds the self-attention ``k``/``v``, written in place,
 and the cross ``xk``/``xv``, which the caller fills with
 :func:`~repro_torch.models.attention.cross_kv` of the encoder output, as
-with the reference.  ``cfg.remat`` is ignored: this is serving only.
+with the reference.  Under ``cfg.remat`` each encoder and decoder layer
+of ``encode`` and ``decode_train`` is checkpointed, where the reference
+wraps its scan bodies in ``jax.checkpoint`` (the reference's own remat path
+raises ``NameError``: it names an undefined ``_ckpt_policy``).
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as att
-from repro_torch.models.common import Config, P_, rms_norm, swiglu, take
+from repro_torch.models.common import (Config, P_, cross_entropy, remat,
+                                      rms_norm, swiglu, take, unstack)
 from repro_torch.models.transformer import CacheSpec, mlp_specs
 
 # learned decoder positions: the reference sizes them for its largest
@@ -67,29 +71,41 @@ def _logits(x, params):
 
 def encode(params, cfg: Config, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, T, D) stub embeddings -> encoder output (B, T, D)."""
-    x = frames.to(cfg.act_dtype)
-    for i in range(cfg.n_enc_layers):
-        lp = take(params["enc"], i)
+    def layer(x, lp):
         h = x + att.attn_apply(rms_norm(x, lp["ln1"]), lp["attn"], cfg,
                                positions=None, causal=False, rope=False)
-        x = _mlp(h, lp)
+        return _mlp(h, lp)
+
+    x = frames.to(cfg.act_dtype)
+    for lp in unstack(params["enc"]):
+        x = remat(layer, cfg)(x, lp)
     return rms_norm(x, params["enc_norm"])
 
 
 def decode_train(params, cfg: Config, tokens, enc_out) -> torch.Tensor:
     """Teacher-forced decoder over tokens (B, S) -> logits (B, S, V)."""
-    s = tokens.shape[1]
-    x = params["embed"][tokens].to(cfg.act_dtype)
-    x = x + params["pos_dec"][:s].to(x.dtype)[None]
-    for i in range(cfg.n_layers):
-        lp = take(params["dec"], i)
+    def layer(x, lp, enc_out):
         h = x + att.attn_apply(rms_norm(x, lp["ln1"]), lp["attn"], cfg,
                                positions=None, causal=True, rope=False)
         mk, mv = att.cross_kv(enc_out, lp["xattn"], cfg)
         h = h + att.cross_attn_apply(rms_norm(h, lp["ln_x"]), lp["xattn"],
                                      cfg, mk, mv)
-        x = _mlp(h, lp)
+        return _mlp(h, lp)
+
+    s = tokens.shape[1]
+    x = params["embed"][tokens].to(cfg.act_dtype)
+    x = x + params["pos_dec"][:s].to(x.dtype)[None]
+    for lp in unstack(params["dec"]):
+        x = remat(layer, cfg)(x, lp, enc_out)
     return _logits(x, params)
+
+
+def loss_fn(params, cfg: Config, batch) -> torch.Tensor:
+    """Mean cross-entropy of the decoder over ``batch``'s ``tokens`` and
+    ``labels``, attending to the encoded ``frames``."""
+    enc_out = encode(params, cfg, batch["frames"])
+    return cross_entropy(decode_train(params, cfg, batch["tokens"], enc_out),
+                         batch["labels"])
 
 
 def init_cache_specs(cfg: Config, batch: int, max_seq: int,

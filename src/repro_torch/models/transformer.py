@@ -1,5 +1,6 @@
 """Decoder stacks of the dense, moe, vlm, ssm (Mamba2) and hybrid
-(Zamba2) families: full-sequence, prefill and decode.
+(Zamba2) families: full-sequence (and its training loss), prefill and
+decode.
 
 Counterpart of ``repro.models.transformer``.  Layer parameters stay stacked
 on their leading axis; where the reference scans, the port loops in
@@ -9,7 +10,10 @@ residual under ``moe_dense_residual``), the ssm stack one Mamba2 block per
 layer, and the hybrid stack groups of Mamba2 blocks, each group closed by
 one attention + SwiGLU block whose weights every group shares.  The vlm
 family rotates by M-RoPE over (3, B, S) positions.  The encdec family has
-its own stack, :mod:`repro_torch.models.encdec`.
+its own stack, :mod:`repro_torch.models.encdec`.  Under ``cfg.remat`` the
+full-sequence forward checkpoints each block where the reference wraps its
+scan body in ``jax.checkpoint``: every dense, moe and vlm block and every
+Mamba2 block, but not the hybrid family's shared attention block.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import Config, P_, rms_norm, swiglu, take
+from repro_torch.models.common import (Config, P_, cross_entropy, remat,
+                                      rms_norm, swiglu, take, unstack)
 
 
 def _check_family(cfg: Config, what: str) -> None:
@@ -102,22 +107,25 @@ def _layers(params, cfg: Config) -> Iterator[tuple]:
     one Mamba2 block per layer; hybrid: groups of Mamba2 blocks, each closed
     by the attention block whose weights every group shares."""
     if cfg.family in ("dense", "moe", "vlm"):
-        for i in range(cfg.n_layers):
-            yield "attn", i, take(params["layers"], i), cfg
+        for i, lp in enumerate(unstack(params["layers"])):
+            yield "attn", i, lp, cfg
     elif cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            yield "ssm", i, _ssm_layer(params, i), cfg
+        for i, lp in enumerate(_ssm_layers(params["ssm_ln"], params["ssm"])):
+            yield "ssm", i, lp, cfg
     else:
         shared, dense_cfg = take(params["shared"], 0), _dense(cfg)
-        n_groups, per = _groups(cfg)
-        for g in range(n_groups):
-            for i in range(per):
-                yield "ssm", (g, i), _ssm_layer(params, (g, i)), cfg
+        groups = _ssm_layers(params["ssm_ln"], params["ssm"])
+        for g, group in enumerate(groups):
+            for i, lp in enumerate(_ssm_layers(group["ln"], group["ssm"])):
+                yield "ssm", (g, i), lp, cfg
             yield "attn", g, shared, dense_cfg
 
 
-def _ssm_layer(params, idx):
-    return {"ln": params["ssm_ln"][idx], "ssm": take(params["ssm"], idx)}
+def _ssm_layers(ln, ssm):
+    """Mamba2 norms and parameters unstacked along their leading axis (the
+    layers, or the hybrid family's groups and then a group's layers), as
+    ``{"ln", "ssm"}`` pairs."""
+    return [{"ln": n, "ssm": sp} for n, sp in zip(unstack(ln), unstack(ssm))]
 
 
 def _ffn(z, lp, cfg: Config):
@@ -157,11 +165,19 @@ def _mamba_block(x, lp, cfg: Config, cache=None, idx=None):
 
 
 def _run_stack(x, params, cfg: Config, positions, cache=None):
+    """The stack over x; without a ``cache``, each block is checkpointed as
+    ``cfg.remat`` asks (see the module docstring)."""
     for kind, idx, lp, lcfg in _layers(params, cfg):
-        if kind == "attn":
-            x = _attn_block(x, lp, lcfg, positions, cache, idx)
+        if cache is not None:
+            x = (_attn_block(x, lp, lcfg, positions, cache, idx)
+                 if kind == "attn" else _mamba_block(x, lp, lcfg, cache, idx))
+        elif kind == "ssm":
+            x = remat(lambda h, lp=lp: _mamba_block(h, lp, cfg), cfg)(x)
+        elif cfg.family == "hybrid":
+            x = _attn_block(x, lp, lcfg, positions)
         else:
-            x = _mamba_block(x, lp, lcfg, cache, idx)
+            x = remat(lambda h, lp=lp: _attn_block(h, lp, cfg, positions),
+                      cfg)(x)
     return x
 
 
@@ -192,6 +208,16 @@ def forward(params, cfg: Config, tokens, positions=None,
     if positions is None:
         positions = default_positions(cfg, b, s, x.device)
     return _logits(_run_stack(x, params, cfg, positions), params)
+
+
+def loss_fn(params, cfg: Config, batch) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch``: ``tokens`` and
+    ``labels`` (B, S), with ``positions`` and ``embeddings`` where it holds
+    them."""
+    logits = forward(params, cfg, batch["tokens"],
+                     positions=batch.get("positions"),
+                     embeddings=batch.get("embeddings"))
+    return cross_entropy(logits, batch["labels"])
 
 
 # ---------------------------------------------------------------------------
