@@ -34,7 +34,16 @@ prefix cache and the batched final-row close, held against per-query
 amplitudes and cached-environment expectations (bit for bit, whatever the
 arrival order), a complex128 case and the launcher itself, the variational
 boundary engine at the reference's cases and on the main-path norm, and the
-first-row pair merge through its kernel.  Then it runs
+first-row pair merge through its kernel.  Then it contracts the same
+state column-sharded (``distributed`` phase, PEPS item 9): norm, energy,
+environments and an amplitude under ``DistributedBMPS`` over every
+visible card in two layouts against the single-device run (levels bit for
+bit on one card, equal kernel launches), a c128 norm and a full-update
+gate with sharded environments, an ensemble of 8x8 D=6 members evolved
+and contracted on a mesh (members bit for bit alone), and a mesh-placed
+VQE ensemble bit for bit the unplaced one; with two or more cards each
+PEPS kernel also launches on the last card while the first is current.
+Then it runs
 imaginary time evolution on 4x4 grids (``ite`` phase): the TFI model with
 the full update at D=3 against the QR update and the exact statevector
 ITE, and the J1-J2 model of paper Fig. 13 with the QR update at D=4 from
@@ -87,8 +96,8 @@ bit.  Every profiled trace must be whole (``trace_complete``: each kernel
 launch the runtime recorded has its device kernel; pad launches at both
 ends absorb the records the profiler drops at a trace's edges), or is
 taken again, and after three incomplete traces the run fails.  ``python3 chip_smoke.py train`` (or ``kernels``, ``wrappers``,
-``lm_kernels``, ``ite``, ``vqe``) runs those phases alone and prints no
-result line.  Each phase
+``lm_kernels``, ``ite``, ``vqe``, ``distributed``) runs those phases alone
+and prints no result line.  Each phase
 prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
@@ -234,6 +243,29 @@ ROB_RESUME_RTOL = 1e-12    # resumed vs fresh energies, relative
 ROB_VQE_SPSA_ITERS = 4
 ROB_VQE_ADAM_STEPS = 4
 ROB_VQE_ENSEMBLE = 2
+
+# Column-sharded contraction and ensembles (distributed phase): the c64
+# main-path state in forced kernel mode under DistributedBMPS over every
+# visible card, in two layouts of its 8 columns (4 shards of 2, and 8
+# width-1 blocks dealt round-robin to 4 shards), against the single-device
+# kernel run; shards wrap onto fewer cards, so one card runs every layout.
+DIST_SHARDS = 4
+DIST_LAYOUTS = (("blocks_of_2", {}), ("block_1", {"block": 1}))
+TOL_DIST = 1e-5            # sharded vs single-device c64 norm, energy, amplitude
+TOL_DIST_C128 = 1e-10      # the c128 4x4 norm and full-update sites
+DIST_C128_CHI = 16
+DIST_FU_CHI = 8
+DIST_TFI_STEPS = 5         # QR-update ITE steps that make the 4x4 TFI state
+DIST_ENSEMBLE = 4          # random_peps(8, 8, 6) members
+DIST_MEMBER_BOND = 6
+# The members' sites are scaled so that an evolved member's norm is O(1) in
+# complex64, as tests/test_distributed.py scales its D=2 states by 2.0 (at
+# 1.0 an evolved 8x8 D=6 member's norm underflows to 0; measured on the CPU
+# at chi 16: 8.8e23 at 8.0, about 1 at 5.2).
+DIST_MEMBER_SCALE = 5.2
+DIST_VQE_ENSEMBLE = 8
+DIST_VQE_STEPS = 2
+DIST_BUDGET_S = 90.0
 
 # PEPS query serving (serving phase): the launcher's traffic
 # (src/repro_torch/launch/serve.py) against the main-path state and a second
@@ -884,18 +916,18 @@ def traced(torch, fn, what, cpu=True):
     pad = torch.zeros(1024, dtype=torch.uint8, device="cuda")
     incomplete = []
     for attempt in range(1, TRACE_ATTEMPTS + 1):
-        torch.cuda.synchronize()
+        sync_all(torch)
         with profile(activities=activities) as prof:
             for _ in range(TRACE_PAD_KERNELS):
                 pad.add_(1)
-            torch.cuda.synchronize()
+            sync_all(torch)
             t0 = time.perf_counter()
             fn()
-            torch.cuda.synchronize()
+            sync_all(torch)
             wall = time.perf_counter() - t0
             for _ in range(TRACE_PAD_KERNELS):
                 pad.add_(1)
-            torch.cuda.synchronize()
+            sync_all(torch)
         record = trace_record(prof, TRACE_PAD_KERNELS)
         if record["launches"] and not trace_complete(prof, TRACE_PAD_KERNELS):
             return (trace_kernels(prof, TRACE_PAD_KERNELS), wall,
@@ -1418,6 +1450,8 @@ def phase_main_path(torch, np):
     main = {"c128_state": anchor_state, "norm_c128_dense": anchor["norm"],
             "norm_c64_kernel": kern["norm"], "norm_c128_s": anchor["norm_s"],
             "norm_c64_kernel_s": kern["norm_s"], "bits_list": bits_list,
+            "energy_c64_kernel": kern["energy"],
+            "energy_c64_kernel_s": kern["energy_s"],
             "amplitudes_c64_kernel": list(kern["amplitudes"])}
     for run in (kern, dense, anchor):
         run["norm"], run["energy"] = _as_pair(run["norm"]), _as_pair(run["energy"])
@@ -1906,6 +1940,386 @@ def phase_serving(torch, np, state, main):
         "c128_served_vs_per_query": tight["rel_err_vs_per_query"]["served"],
         "variational_vs_c128": var["main_norm"]["variational_vs_c128"]}
     emit({"phase": "serving", "launches": launches, **summary})
+    return launches, summary
+
+
+# ---------------------------------------------------------------------------
+# Column-sharded contraction and ensembles (distributed phase, PEPS item 9)
+# ---------------------------------------------------------------------------
+
+def sync_all(torch) -> None:
+    """Wait for every visible card: a timing that crosses cards must."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def launches_since(before: dict) -> dict:
+    now = peps_launches()
+    return {k: now[k] - before[k] for k in now}
+
+
+def dist_run(torch, fn):
+    """``fn()`` between two waits on every card: (its result, wall
+    seconds, the PEPS kernels it launched)."""
+    sync_all(torch)
+    before = peps_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    sync_all(torch)
+    return out, time.perf_counter() - t0, launches_since(before)
+
+
+def busy_by_device(prof, pad=0) -> dict:
+    """Device seconds of a trace's kernels by card (the pad launches of
+    :func:`traced` left out)."""
+    launches, device = _launches_and_kernels(prof)
+    pads = {c for _, c in launches[:pad] + launches[len(launches) - pad:]}
+    out = {}
+    for c, evt in device.items():
+        if c not in pads:
+            key = f"cuda:{evt.device_index()}"
+            out[key] = out.get(key, 0.0) + evt.duration_ns() / 1e9
+    return out
+
+
+def distributed_cross_device(torch):
+    """The device-guard repair: with cuda:0 current, each PEPS kernel on
+    operands of the last card, against its plain version (TOL_F32), one
+    launch each, cuda:0 still current.  Skipped on one card.  Its launches
+    are comparisons, not the path's: the caller counts the path after."""
+    from repro_torch.kernels import zipup_block as Z
+    from repro_torch.kernels.gram import gram_complex, gram_complex_plain
+    from repro_torch.kernels.matvec import tall_apply_complex, \
+        tall_apply_complex_plain
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        return {"cross_device": False}
+    last = torch.device("cuda", count - 1)
+    gen = torch.Generator(device=last).manual_seed(SEED)
+
+    def c64(*shape):
+        return torch.complex(
+            torch.randn(shape, generator=gen, device=last),
+            torch.randn(shape, generator=gen, device=last))
+    cases = {
+        "gram_complex": (gram_complex, gram_complex_plain,
+                         [c64(82944, 72)]),
+        "tall_apply_complex": (tall_apply_complex, tall_apply_complex_plain,
+                               [c64(82944, 72), c64(72, 72)])}
+    for site, _, plain, _, g, _ in ZIPUP_SITES:
+        fn = {"zipup_first_onelayer": Z._first_onelayer_kernel,
+              "zipup_first_twolayer": Z._first_twolayer_kernel,
+              "pair_merge": Z._pair_merge_kernel}[site]
+        cases[site] = (fn, getattr(Z, plain),
+                       [c64(*sh) for sh in zipup_shapes(site, 6, g, True)])
+    errs = {}
+    with torch.cuda.device(0):
+        for name, (fn, plain, xs) in cases.items():
+            before = peps_launches()
+            got = fn(*xs)
+            torch.cuda.synchronize(last)
+            launched = sum(launches_since(before).values())
+            errs[name] = rel_gap(torch, got, plain(*xs))
+            check(launched == 1 and got.device == last
+                  and torch.cuda.current_device() == 0,
+                  f"{name} on {last} with cuda:0 current: {launched} "
+                  f"launches, output on {got.device}")
+            check(errs[name] <= TOL_F32,
+                  f"{name} on {last} against its plain version: "
+                  f"{errs[name]}")
+    return {"cross_device": True, "device": str(last), "rel_err": errs}
+
+
+def distributed_main_path(torch, np, state, main, devices):
+    """The c64 main-path norm, TFI energy, top environments and one
+    amplitude under DistributedBMPS in both layouts, against the
+    single-device kernel run.  Norms run in turns (single, each layout,
+    single) for their wall seconds; the energy is the cached-environment
+    one of ``expectation`` (its key, its environments), so the sharded
+    top levels are compared with a single-device sweep of the same key.
+    With two or more cards one sharded norm is traced for each card's
+    busy seconds (on one card the profile phase's device time of a norm
+    is that card's)."""
+    from repro_torch.core.bmps import BMPS, amplitude, norm_squared
+    from repro_torch.core.distributed import DistributedBMPS, \
+        halo_bytes_per_row
+    from repro_torch.core.environments import row_environments, \
+        top_environments
+    from repro_torch.core.expectation import DEFAULT_EXPECTATION_KEY_SEED, \
+        expectation_from_envs
+    from repro_torch.core.keys import TorchKey
+    from repro_torch.core.observable import tfi_hamiltonian
+
+    obs = tfi_hamiltonian(GRID, GRID)
+    key = TorchKey(DEFAULT_EXPECTATION_KEY_SEED)
+    single = BMPS.randomized(CHI, niter=4, oversample=8)
+    opts = {label: DistributedBMPS.randomized(
+        CHI, niter=4, oversample=8, n_shards=DIST_SHARDS, devices=devices,
+        **extra) for label, extra in DIST_LAYOUTS}
+    distinct = len(set(devices)) > 1
+    # norms in turns: single, each layout, single
+    turns = [("single", single)] + list(opts.items()) + [("single", single)]
+    norms = {}
+    for label, opt in turns:
+        val, wall, launched = dist_run(torch,
+                                       lambda: norm_squared(state, opt))
+        norms.setdefault(label, []).append((complex(val), wall, launched))
+    norm1, _, norm1_l = norms["single"][0]
+    env1, env1_s, _ = dist_run(torch, lambda: top_environments(
+        state.sites, state.sites, single, key.split(2)[0]))
+    out = {"single": {"norm": _as_pair(norm1),
+                      "norm_s": [w for _, w, _ in norms["single"]],
+                      "environments_s": env1_s,
+                      "launches_per_norm": norm1_l,
+                      "main_path_norm_s": main["norm_c64_kernel_s"],
+                      "main_path_energy_s": main["energy_c64_kernel_s"]}}
+    check(norms["single"][1][0] == norm1,
+          f"single-device norms differ between turns: {norms['single']}")
+    for label, opt in opts.items():
+        layout, _ = opt.resolve(GRID, state.device)
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.reset_peak_memory_stats(i)
+        norm, norm_s, norm_l = norms[label][0]
+        (top, bottom), envs_s, _ = dist_run(
+            torch, lambda: row_environments(state, opt, key))
+        energy, strips_s, _ = dist_run(
+            torch, lambda: expectation_from_envs(state, obs, top, bottom))
+        gaps = [float((a - b).abs().max()) for la, lb in zip(top, env1)
+                for a, b in zip(la, lb)]
+        same = all(torch.equal(a, b) for la, lb in zip(top, env1)
+                   for a, b in zip(la, lb))
+        row = {"blocks": [[sh, list(cols)] for sh, cols in layout.blocks],
+               "norm": _as_pair(norm), "energy": _as_pair(complex(energy)),
+               "norm_vs_main": rel(norm, main["norm_c64_kernel"]),
+               "energy_vs_main": rel(complex(energy),
+                                     main["energy_c64_kernel"]),
+               "norm_s": norm_s, "environments_s": envs_s,
+               "energy_s": envs_s + strips_s, "launches_per_norm": norm_l,
+               "environments_bit_for_bit": same,
+               "environments_max_gap": max(gaps),
+               "halo_bytes_per_row": halo_bytes_per_row(state, opt),
+               "max_memory_allocated": [torch.cuda.max_memory_allocated(i)
+                                        for i in range(
+                                            torch.cuda.device_count())]}
+        edges = [i for i in range(1, len(layout.blocks))
+                 if layout.blocks[i][0] != layout.blocks[i - 1][0]]
+        moved = [i for i in edges
+                 if devices[layout.blocks[i][0] % len(devices)]
+                 != devices[layout.blocks[i - 1][0] % len(devices)]]
+        row["halo_bytes_moved_per_row"] = (
+            row["halo_bytes_per_row"] * len(moved) // len(edges)
+            if edges else 0)
+        out[label] = row
+        check(row["norm_vs_main"] <= TOL_DIST
+              and row["energy_vs_main"] <= TOL_DIST,
+              f"distributed {label} against the single-device kernel run: "
+              f"{row}")
+        check(same if not distinct else math.isfinite(max(gaps)),
+              f"distributed {label} environments: bit for bit {same}, "
+              f"largest gap {max(gaps)}")
+        for k in TWO_LAYER_KERNELS:
+            check(norm_l[k] == norm1_l[k] and norm_l[k] > 0,
+                  f"distributed {label} norm launched {norm_l} against "
+                  f"{norm1_l} single-device")
+    opt = opts["block_1"]
+    amp, amp_s, amp_l = dist_run(torch, lambda: amplitude(
+        state, main["bits_list"][0], opt))
+    want = main["amplitudes_c64_kernel"][0]
+    out["amplitude"] = {"value": _as_pair(complex(amp)), "s": amp_s,
+                        "launches": amp_l, "vs_single": rel(complex(amp),
+                                                            want)}
+    check(amp_l["zipup_pair"] > 0
+          and out["amplitude"]["vs_single"] <= TOL_DIST,
+          f"distributed amplitude: {out['amplitude']}")
+    if distinct:
+        _, wall, trace, prof = traced(
+            torch, lambda: norm_squared(state, opt), "distributed norm")
+        out["profile_block_1"] = {
+            "wall_s": wall, "trace": trace["trace"],
+            "busy_s_by_device": busy_by_device(prof, TRACE_PAD_KERNELS)}
+    return out
+
+
+def distributed_small(torch, devices):
+    """c128: the 4x4 DirectSVD norm, sharded 3 ways, and one full-update
+    gate on the 4x4 TFI state with distributed environments, against the
+    single-device option (TOL_DIST_C128)."""
+    from repro_torch.core.bmps import BMPS, norm_squared
+    from repro_torch.core.distributed import DistributedBMPS
+    from repro_torch.core.einsumsvd import DirectSVD
+    from repro_torch.core.ite import ite_run, trotter_moments
+    from repro_torch.core.keys import TorchKey
+    from repro_torch.core.observable import tfi_hamiltonian
+    from repro_torch.core.peps import FullUpdate, QRUpdate, apply_operator, \
+        computational_zeros
+
+    obs = tfi_hamiltonian(ITE_GRID, ITE_GRID)
+    state = ite_run(computational_zeros(ITE_GRID, ITE_GRID), obs, ITE_TAU,
+                    DIST_TFI_STEPS, QRUpdate(rank=ITE_RANK),
+                    BMPS(ITE_MEASURE_CHI), measure_every=DIST_TFI_STEPS,
+                    key=TorchKey(SEED)).state
+    want = norm_squared(state, BMPS(DIST_C128_CHI, DirectSVD()))
+    got = norm_squared(state, DistributedBMPS(
+        DIST_C128_CHI, DirectSVD(), n_shards=3, block=1, devices=devices))
+    g, sites = next((g, s) for g, s in trotter_moments(obs, ITE_TAU)
+                    if len(s) == 2)
+    new = {}
+    for name, env in (("single", BMPS(DIST_FU_CHI)),
+                      ("distributed", DistributedBMPS(
+                          DIST_FU_CHI, n_shards=DIST_SHARDS, block=1,
+                          devices=devices))):
+        new[name] = apply_operator(state, g, sites, FullUpdate(
+            rank=ITE_RANK, chi=DIST_FU_CHI, env_contract=env),
+            key=TorchKey(SEED + 1))
+    gap = max(float((a - b).abs().max())
+              for ra, rb in zip(new["single"].sites, new["distributed"].sites)
+              for a, b in zip(ra, rb))
+    out = {"norm_c128_rel": rel(complex(got), complex(want)),
+           "full_update_sites_max_gap": gap, "gate_sites": sites}
+    check(out["norm_c128_rel"] <= TOL_DIST_C128
+          and gap <= TOL_DIST_C128, f"distributed c128 checks: {out}")
+    return out
+
+
+def distributed_ensembles(torch, np):
+    """batched_evolve then batched_contract(chi 64) of DIST_ENSEMBLE
+    random 8x8 D=6 members placed on peps_mesh(1, DIST_ENSEMBLE)'s cards
+    (c64, forced kernel mode), members 0 and the last alone bit for bit;
+    then the Fig. 14 adam ensemble with and without a mesh, bit for bit."""
+    from repro_torch.core import sharding as S
+    from repro_torch.core.keys import TorchKey
+    from repro_torch.core.observable import tfi_hamiltonian
+    from repro_torch.core.peps import PEPS, random_peps
+    from repro_torch.core.vqe import run_vqe
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import peps_mesh
+
+    mesh = peps_mesh(1, DIST_ENSEMBLE)
+    placed = S.ensemble_sharding(mesh, DIST_ENSEMBLE, 6)
+    members = []
+    for i in range(DIST_ENSEMBLE):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + i)
+        st = random_peps(GRID, GRID, DIST_MEMBER_BOND, gen,
+                         dtype=torch.complex64)
+        members.append(PEPS([[t * DIST_MEMBER_SCALE for t in row]
+                             for row in st.sites]))
+    stacked = PEPS([[torch.stack([m.sites[i][j] for m in members])
+                     for j in range(GRID)] for i in range(GRID)])
+    keys = TorchKey(SEED).split(DIST_ENSEMBLE)
+    prev = dispatch.set_kernel_backend("kernel")
+    try:
+        evolved, evolve_s, evolve_l = dist_run(
+            torch, lambda: S.batched_evolve(stacked, keys, mesh=mesh))
+        norms, contract_s, contract_l = dist_run(
+            torch, lambda: S.batched_contract(evolved, CHI, keys, mesh=mesh))
+        alone = {}
+        for i in (0, DIST_ENSEMBLE - 1):
+            ev = S.evolve_step(members[i], keys[i])
+            alone[i] = (ev, S.contract_step(ev, CHI, keys[i]))
+    finally:
+        dispatch.set_kernel_backend(prev)
+    same = {i: all(torch.equal(t[i], a) for row, arow in zip(
+        evolved.sites, ev.sites) for t, a in zip(row, arow))
+        and torch.equal(norms[i], n) for i, (ev, n) in alone.items()}
+    ens = {"members": DIST_ENSEMBLE, "axes": list(placed.axes),
+           "devices": [str(d) for d in placed.devices],
+           "norms": [_as_pair(complex(v)) for v in norms],
+           "evolve_s": evolve_s, "contract_s": contract_s,
+           "launches": {"evolve": evolve_l, "contract": contract_l},
+           "alone_bit_for_bit": {str(i): v for i, v in same.items()}}
+    check(all(same.values())
+          and all(math.isfinite(abs(complex(v))) and abs(complex(v)) > 0
+                  for v in norms), f"distributed ensembles: {ens}")
+    for k in TWO_LAYER_KERNELS:
+        check(contract_l[k] > 0, f"batched_contract never launched {k}")
+
+    obs = tfi_hamiltonian(VQE_GRID, VQE_GRID, jz=-1.0, hx=-3.5)
+    runs = {}
+    for name, m in (("unplaced", None),
+                    ("mesh", peps_mesh(2, DIST_VQE_ENSEMBLE // 2))):
+        t0 = time.perf_counter()
+        res = run_vqe(VQE_GRID, VQE_GRID, obs, VQE_LAYERS, VQE_OPT_RANK,
+                      contract_bond=VQE_OPT_CHI, maxiter=DIST_VQE_STEPS,
+                      seed=SEED, method="adam", ensemble=DIST_VQE_ENSEMBLE,
+                      mesh=m)
+        sync_all(torch)
+        runs[name] = (res, time.perf_counter() - t0)
+    (a, a_s), (b, b_s) = runs["unplaced"], runs["mesh"]
+    vqe_same = all(np.array_equal(getattr(a, k), getattr(b, k)) for k in (
+        "ensemble_thetas", "ensemble_energies", "ensemble_history"))
+    vqe = {"ensemble": DIST_VQE_ENSEMBLE, "steps": DIST_VQE_STEPS,
+           "energy": b.energy, "unplaced_s": a_s, "mesh_s": b_s,
+           "mesh_devices": [str(d) for d in S.ensemble_sharding(
+               peps_mesh(2, DIST_VQE_ENSEMBLE // 2), DIST_VQE_ENSEMBLE,
+               2).devices],
+           "bit_for_bit": vqe_same}
+    check(vqe_same, f"mesh-placed VQE differs from the unplaced run: {vqe}")
+    return ens, vqe
+
+
+def phase_distributed(torch, np, state=None, main=None):
+    """PEPS item 9's first half on the card: column-sharded contraction of
+    the c64 main-path state, the c128 checks, ensembles and the mesh VQE.
+    Alone (``python3 chip_smoke.py distributed``) it builds the main-path
+    state and its single-device kernel run itself.  Returns the PEPS
+    kernels' launches over the phase's path (the cross-device check's
+    comparisons before it not counted) and its summary."""
+    from repro_torch.kernels import dispatch
+
+    devices = tuple(torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count()))
+    t0 = time.perf_counter()
+    cross = distributed_cross_device(torch)
+    cross["seconds"] = time.perf_counter() - t0
+    if state is None:
+        rng = np.random.default_rng(SEED)
+        thetas = rng.uniform(0.0, THETA_MAX, size=(LAYERS, GRID * GRID))
+        bits_list = likely_bitstrings(np, thetas, GRID, 1)
+        kern, state = run_main_path(torch, torch.complex64, "kernel", thetas,
+                                    bits_list)
+        main = {"norm_c64_kernel": kern["norm"],
+                "energy_c64_kernel": kern["energy"],
+                "norm_c64_kernel_s": kern["norm_s"],
+                "energy_c64_kernel_s": kern["energy_s"],
+                "bits_list": bits_list,
+                "amplitudes_c64_kernel": kern["amplitudes"]}
+    # the budget counts the path's work: not the standalone set-up, nor the
+    # cross-device comparisons
+    t_phase = time.perf_counter()
+    reset_peps_launches()
+    parts = {}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        parts[name] = time.perf_counter() - t0
+        return out
+    prev = dispatch.set_kernel_backend("kernel")
+    try:
+        path = part("main_path", lambda: distributed_main_path(
+            torch, np, state, main, devices))
+    finally:
+        dispatch.set_kernel_backend(prev)
+    small = part("c128", lambda: distributed_small(torch, devices))
+    ens, vqe = part("ensembles", lambda: distributed_ensembles(torch, np))
+    launches = peps_launches()
+    seconds = time.perf_counter() - t_phase
+    line = {"phase": "distributed", "devices": [str(d) for d in devices],
+            "distinct": len(set(devices)), **cross, "main_path": path,
+            "c128": small, "ensembles": ens, "vqe": vqe,
+            "launches": launches, "part_seconds": parts,
+            "seconds": seconds}
+    emit(line)
+    check(seconds <= DIST_BUDGET_S,
+          f"distributed phase took {seconds:.1f} s (budget "
+          f"{DIST_BUDGET_S} s)")
+    summary = {"seconds": seconds, "devices": len(devices),
+               "cross_device": cross["cross_device"],
+               **{f"{label}_norm_s": path[label]["norm_s"]
+                  for label, _ in DIST_LAYOUTS},
+               "single_norm_s": path["single"]["norm_s"],
+               "vqe_bit_for_bit": vqe["bit_for_bit"]}
     return launches, summary
 
 
@@ -3991,6 +4405,7 @@ def main() -> int:
                       "lm_kernels": (phase_lm_kernels, torch),
                       "ite": (phase_ite, torch, np),
                       "vqe": (phase_vqe, torch, np),
+                      "distributed": (phase_distributed, torch, np),
                       "train": (phase_train, torch, np)}
         unknown = [name for name in only if name not in standalone]
         if unknown:
@@ -4024,9 +4439,12 @@ def main() -> int:
         timed("profile", phase_profile, torch, state)
         serving, serving_summary = timed("serving", phase_serving, torch, np,
                                          state, main_info)
+        distributed, distributed_summary = timed(
+            "distributed", phase_distributed, torch, np, state, main_info)
         del state
         torch.cuda.empty_cache()
         by_path = {"peps": dict(launches), "serving": serving,
+                   "distributed": distributed,
                    "ite": timed("ite", phase_ite, torch, np)}
         torch.cuda.empty_cache()
         by_path["vqe"], vqe_summary = timed("vqe", phase_vqe, torch, np)
@@ -4089,6 +4507,7 @@ def main() -> int:
                 "src/repro/kernels/zipup_block.py:101"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": phase_s, "serving": serving_summary,
+          "distributed": distributed_summary,
           "vqe": vqe_summary, "robustness": robustness_summary})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -14,7 +14,9 @@ Counterpart of ``repro.core.bmps``:
 
 Boundary tensors are ``(l, d, r)`` (one layer) and ``(l, d_bra, d_ket, r)``
 (two layers).  Row absorption is the job of the option's boundary engine
-(:mod:`repro_torch.core.engines`).
+(:mod:`repro_torch.core.engines`).  Where a ``BMPS`` goes, a
+:class:`~repro_torch.core.distributed.DistributedBMPS` runs the same sweep
+column-sharded across devices (``amplitudes`` takes a ``BMPS`` only).
 """
 from __future__ import annotations
 
@@ -24,8 +26,9 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import distributed
 from repro_torch.core.einsumsvd import DirectSVD, RandomizedSVD
-from repro_torch.core.engines import get_engine
+from repro_torch.core.engines import get_engine, registered_engines
 from repro_torch.core.engines.zipup import _keys, trivial_twolayer_boundary
 from repro_torch.core.peps import scale_by
 from repro_torch.core.precision import resolve_precision, wrap_svd
@@ -64,17 +67,35 @@ class BMPS:
                                           fused=fused), **kw)
 
 
-def _check_option(option) -> None:
-    if not isinstance(option, BMPS):
-        raise TypeError(f"unknown contraction option "
-                        f"{type(option).__name__!r}: expected a BMPS, got "
-                        f"{option!r}")
+def _distributed_module(option):
+    """:mod:`repro_torch.core.distributed` if ``option`` is a
+    ``DistributedBMPS``, None for a :class:`BMPS`; anything else raises a
+    ``TypeError`` naming the accepted options and the registered engines."""
+    if isinstance(option, BMPS):
+        return None
+    if isinstance(option, distributed.DistributedBMPS):
+        return distributed
+    raise TypeError(
+        f"unknown contraction option {type(option).__name__!r}: expected a "
+        f"BMPS or DistributedBMPS (engine= one of "
+        f"{sorted(registered_engines())}), got {option!r}")
+
+
+def _check_single_device(option, what: str) -> None:
+    """Raise the reference's ``TypeError`` where only a single-device
+    :class:`BMPS` serves (and for anything that is no option at all)."""
+    if _distributed_module(option) is not None:
+        raise TypeError(f"{what} serve single-device BMPS options")
 
 
 def contract_onelayer(rows: Sequence[Sequence[torch.Tensor]], option: BMPS,
                       key=None) -> torch.Tensor:
-    """Alg. 2: contract an (u,l,d,r)-site PEPS to a scalar."""
-    _check_option(option)
+    """Alg. 2: contract an (u,l,d,r)-site PEPS to a scalar; a
+    ``DistributedBMPS`` runs it column-sharded
+    (:func:`repro_torch.core.distributed.contract_onelayer`)."""
+    dist = _distributed_module(option)
+    if dist is not None:
+        return dist.contract_onelayer(rows, option, key)
     eng = get_engine(option.engine)
     nrow = len(rows)
     keys = _keys(key, max(nrow, 2))
@@ -117,8 +138,11 @@ def merge_layers(bra_rows, ket_rows) -> List[List[torch.Tensor]]:
 
 def contract_twolayer(bra_rows, ket_rows, option: BMPS, key=None) -> torch.Tensor:
     """<bra|ket> keeping the two layers implicit; the sweep starts from a
-    trivial boundary so the first row is truncated as well."""
-    _check_option(option)
+    trivial boundary so the first row is truncated as well.  A
+    ``DistributedBMPS`` runs it column-sharded."""
+    dist = _distributed_module(option)
+    if dist is not None:
+        return dist.contract_twolayer(bra_rows, ket_rows, option, key)
     eng = get_engine(option.engine)
     nrow = len(bra_rows)
     keys = _keys(key, max(nrow, 2))
@@ -224,7 +248,7 @@ def amplitudes(state, bits_batch, option: BMPS, key=None) -> torch.Tensor:
     (:func:`final_row_amplitudes`).  :mod:`repro_torch.core.serving` adds
     the prefix cache, bucketing and the request queue."""
     from repro_torch.core.environments import onelayer_prefix_environment
-    _check_option(option)
+    _check_single_device(option, "batched amplitudes")
     bits_arr = np.asarray(bits_batch)
     B = bits_arr.shape[0]
     bits_arr = bits_arr.reshape(B, state.nrow, state.ncol)

@@ -18,7 +18,8 @@ from typing import List, Sequence, Tuple
 import torch
 
 from repro_torch.core import planner
-from repro_torch.core.bmps import BMPS, _check_option
+from repro_torch.core.bmps import BMPS, _check_single_device, \
+    _distributed_module
 from repro_torch.core.engines import get_engine
 from repro_torch.core.engines.zipup import _keys, trivial_twolayer_boundary
 from repro_torch.core.keys import key_or_default
@@ -41,9 +42,16 @@ def _flip_rows(rows: Sequence[Sequence[torch.Tensor]]):
 def top_environments(bra_rows, ket_rows, option: BMPS,
                      key=None) -> List[List[torch.Tensor]]:
     """``top[i]`` = boundary MPS of rows ``0..i-1`` (``top[0]`` trivial);
-    length ``nrow+1`` — closing ``top[nrow]`` gives <bra|ket>."""
-    _check_option(option)
+    length ``nrow+1`` — closing ``top[nrow]`` gives <bra|ket>.
+
+    A :class:`~repro_torch.core.distributed.DistributedBMPS` runs the sweep
+    column-sharded with this key and gathers every level to its first
+    device, bit for bit these levels, so ``expectation``'s strips and the
+    full update read them unchanged."""
     key = key_or_default(key, DEFAULT_KEY_SEED)
+    dist = _distributed_module(option)
+    if dist is not None:
+        return dist.top_environments(bra_rows, ket_rows, option, key)
     eng = get_engine(option.engine)
     nrow, ncol = len(bra_rows), len(bra_rows[0])
     t0 = bra_rows[0][0]
@@ -74,8 +82,9 @@ def onelayer_top_environments(rows, option: BMPS, key=None,
     ``_keys(key, max(nrow, 2))`` split, as in
     :func:`repro_torch.core.bmps.contract_onelayer`, so closing ``env[-1]``
     repeats the per-query contraction bit for bit.  ``nrow_total`` sets
-    the split length when ``rows`` is the prefix of a taller grid."""
-    _check_option(option)
+    the split length when ``rows`` is the prefix of a taller grid.  Only a
+    single-device :class:`BMPS` serves (the reference's ``TypeError``)."""
+    _check_single_device(option, "onelayer prefix environments")
     eng = get_engine(option.engine)
     nrow = nrow_total if nrow_total is not None else len(rows)
     keys = _keys(key, max(nrow, 2))

@@ -99,7 +99,8 @@ def _log_fidelity(f: torch.Tensor) -> None:
 
 def env_option(update) -> BMPS:
     """The boundary-MPS option of this update's row environments:
-    ``FullUpdate.env_contract`` when set, else ``BMPS(chi, env_svd)``."""
+    ``FullUpdate.env_contract`` when set (a ``BMPS`` or a column-sharded
+    ``DistributedBMPS``), else ``BMPS(chi, env_svd)``."""
     if update.env_contract is not None:
         return update.env_contract
     svd = update.env_svd

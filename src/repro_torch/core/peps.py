@@ -180,9 +180,10 @@ class FullUpdate:
                 environments every N gate applications; they are refreshed
                 regardless when a bond has grown since the cached sweep.
     env_contract: contraction option of the environment sweeps, overriding
-                ``(chi, env_svd)`` when set.  Only a ``BMPS`` until the
-                column-sharded ``DistributedBMPS`` is ported (ROADMAP PEPS
-                item 9).
+                ``(chi, env_svd)`` when set: a ``BMPS``, or a
+                :class:`~repro_torch.core.distributed.DistributedBMPS` to run
+                the row-environment sweeps column-sharded across devices
+                (the same values, the levels bit for bit).
     """
     rank: int
     svd: object = DirectSVD()
@@ -196,12 +197,12 @@ class FullUpdate:
 
     def __post_init__(self):
         from repro_torch.core.bmps import BMPS
+        from repro_torch.core.distributed import DistributedBMPS
         if self.env_contract is not None and \
-                not isinstance(self.env_contract, BMPS):
-            raise NotImplementedError(
-                f"env_contract={type(self.env_contract).__name__}: only a "
-                "BMPS is ported; the distributed environment sweeps wait "
-                "for ROADMAP PEPS item 9 (multi-device)")
+                not isinstance(self.env_contract, (BMPS, DistributedBMPS)):
+            raise TypeError(
+                f"env_contract={type(self.env_contract).__name__}: expected "
+                f"a BMPS or DistributedBMPS contraction option")
 
 
 def check_update(update) -> None:

@@ -229,7 +229,8 @@ class ServingEngine:
                        env_key=None) -> None:
         """Register (or replace) a servable state.
 
-        ``option`` must be a :class:`~repro_torch.core.bmps.BMPS`.  ``key``
+        ``option`` must be a single-device
+        :class:`~repro_torch.core.bmps.BMPS`.  ``key``
         seeds the amplitude row keys as ``bmps.amplitude(..., key=key)``
         does; ``env_key`` seeds the observable row environments (default:
         the key of :func:`repro_torch.core.expectation.expectation`).
@@ -237,7 +238,8 @@ class ServingEngine:
         cached environment derived from it."""
         if not isinstance(option, BMPS):
             raise TypeError(
-                f"serving requires a BMPS option, got {type(option).__name__}")
+                f"serving requires a single-device BMPS option, got "
+                f"{type(option).__name__}")
         get_engine(option.engine)  # fail fast
         env_key = key_or_default(env_key, DEFAULT_EXPECTATION_KEY_SEED)
         amp_keys = list(_keys(key, max(state.nrow, 2)))

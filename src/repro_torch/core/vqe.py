@@ -24,7 +24,11 @@ routes dense under ``auto`` and raises under a forced ``kernel`` mode
 (:mod:`repro_torch.kernels.dispatch`), so a complex64 gradient runs dense.
 
 The reference ``vmap``s its ensemble members; the port runs them one after
-another.  Member ``i`` draws its initial angles from ``key.fold_in(i)`` and
+another, each on its device: ``mesh=`` (a
+:class:`~repro_torch.launch.mesh.Mesh`) places member ``i`` where
+:func:`repro_torch.core.sharding.ensemble_sharding` puts it, the optimizer
+state stays on the CPU, and the values equal an unplaced run's.  Member
+``i`` draws its initial angles from ``key.fold_in(i)`` and
 its SPSA signs at iteration ``k`` from
 ``key.fold_in(0x5B5A).fold_in(k).fold_in(i)`` (``key`` defaults to
 ``TorchKey(seed)``), so its trajectory depends only on ``(seed, k, i)``,
@@ -43,8 +47,6 @@ activates the runtime guard: host-driven evaluations (SLSQP, sequential
 SPSA) guard every einsumsvd solve; gradient evaluations and the ensemble
 iterations are guarded as a whole, with the per-solve guard suspended, and
 a non-finite result replays them one escalation rung more conservative.
-
-Not ported yet: mesh-sharded ensembles (``mesh=``), PEPS item 9.
 """
 from __future__ import annotations
 
@@ -82,11 +84,6 @@ SPSA_GAINS = (0.15, 0.12)
 
 # the reference folds this constant into the seed key for the SPSA signs
 _SPSA_STREAM = 0x5B5A
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} of the VQE optimizers is not "
-                               f"ported yet (ROADMAP {item})")
 
 
 def _angles(thetas, device: torch.device):
@@ -378,16 +375,18 @@ def _member_init(key, ensemble: int, n_params: int) -> torch.Tensor:
 
 
 def _ensemble_step(method, nrow, ncol, obs, update, contract, cfg, key,
-                   energy_key, dtype, device):
+                   energy_key, dtype, devices):
     """One iteration of every member as a pure function ``step(state, k,
-    update, contract) -> (state, energies)``.  ``state`` is ``{"x", "mu",
-    "nu": (ensemble, P) float64, "count": (ensemble,) int32}`` on the CPU
-    (SPSA carries zero moments, so both methods share one checkpoint
-    layout); ``energies`` is a float64 numpy array of the members'."""
+    update, contract) -> (state, energies)``, member ``i`` on
+    ``devices[i]``.  ``state`` is ``{"x", "mu", "nu": (ensemble, P)
+    float64, "count": (ensemble,) int32}`` on the CPU (SPSA carries zero
+    moments, so both methods share one checkpoint layout); ``energies`` is
+    a float64 numpy array of the members'."""
     if method == "adam":
         def member(st, i, k, upd, con):
             e, g = vqe_energy_and_grad(st["x"][i], nrow, ncol, obs, upd, con,
-                                       energy_key, dtype=dtype, device=device)
+                                       energy_key, dtype=dtype,
+                                       device=devices[i])
             mom = {"mu": st["mu"][i], "nu": st["nu"][i],
                    "count": st["count"][i]}
             x, mom, _ = adamw_update(g.cpu(), mom, st["x"][i], cfg)
@@ -400,7 +399,7 @@ def _ensemble_step(method, nrow, ncol, obs, update, contract, cfg, key,
             def energy(x):
                 return float(vqe_energy_peps(x.numpy(), nrow, ncol, obs, upd,
                                              con, energy_key, dtype=dtype,
-                                             device=device))
+                                             device=devices[i]))
             x = st["x"][i]
             delta = spsa_base.fold_in(k).fold_in(i).rademacher(
                 x.shape, torch.float64, "cpu")
@@ -423,7 +422,7 @@ def _ensemble_step(method, nrow, ncol, obs, update, contract, cfg, key,
 
 def _run_ensemble(nrow, ncol, obs, n_layers, maxiter, method, update,
                   contract, ensemble, cfg, key, energy_key, callback, dtype,
-                  device, active_guard, manager, checkpoint_every, resume,
+                  devices, active_guard, manager, checkpoint_every, resume,
                   current_delta, prior_delta):
     """``maxiter`` adam or SPSA iterations of every member from the
     member-keyed initial angles, one member after another, guarded at
@@ -453,7 +452,7 @@ def _run_ensemble(nrow, ncol, obs, n_layers, maxiter, method, update,
             resumed_from = latest
 
     step = _ensemble_step(method, nrow, ncol, obs, update, contract, cfg,
-                          key, energy_key, dtype, device)
+                          key, energy_key, dtype, devices)
     for k in range(start_k, maxiter):
         def run(upd, con, force_dense, st=state, k=k):
             with _evaluation(force_dense):
@@ -524,11 +523,25 @@ def run_vqe(
     (SLSQP: every N energy evaluations), keeping ``checkpoint_keep``; with
     ``resume=True`` a call resumes from the latest checkpoint: sequential
     SPSA and the ensembles bit for bit, SLSQP as a warm restart from the
-    saved angles and history.  ``mesh`` raises ``NotImplementedError``
-    until ROADMAP PEPS item 9."""
-    if mesh is not None:
-        raise _not_ported("mesh-sharded ensembles (mesh=)", "PEPS item 9")
-    device = resolve_device(device)
+    saved angles and history.  ``mesh`` (e.g.
+    :func:`repro_torch.launch.mesh.peps_mesh`) places the members of an
+    ensemble run (:func:`repro_torch.core.sharding.ensemble_sharding`),
+    each member's energies on its device; a ``device`` given beside it
+    must be of the mesh's device type."""
+    if mesh is None:
+        device = resolve_device(device)
+        member_devices = [device] * ensemble
+    else:
+        from repro_torch.core.sharding import ensemble_sharding
+        member_devices = ensemble_sharding(mesh, ensemble, 2).devices
+        kinds = {d.type for d in member_devices}
+        if device is not None:
+            kinds.add(torch.device(device).type)
+        if len(kinds) != 1:
+            raise ValueError(
+                f"mesh devices {[str(d) for d in member_devices]} and "
+                f"device={device!r} must be of one device type")
+        device = member_devices[0]
     # the energies' sketch key, of the caller's key type
     energy_key = (TorchKey if key is None else type(key))(
         DEFAULT_VQE_KEY_SEED)
@@ -554,6 +567,11 @@ def run_vqe(
     if batched and backend != "peps":
         raise ValueError("batched drivers optimize the PEPS energy "
                          f"(got backend={backend!r})")
+    if mesh is not None and not batched:
+        raise ValueError(
+            f"mesh= places the members of an ensemble run: method='adam', "
+            f"or 'spsa' with ensemble > 1 (got method={method!r}, "
+            f"ensemble={ensemble})")
 
     manager = (CheckpointManager(checkpoint_dir, keep=checkpoint_keep)
                if checkpoint_dir is not None else None)
@@ -584,16 +602,17 @@ def run_vqe(
             state, ehist, resumed_from = _run_ensemble(
                 nrow, ncol, obs, n_layers, maxiter, method_l, update,
                 contract, ensemble, cfg, TorchKey(seed) if key is None
-                else key, energy_key, callback, dtype, device, active_guard,
-                manager, checkpoint_every, resume, current_delta,
-                prior_planner_delta)
+                else key, energy_key, callback, dtype, member_devices,
+                active_guard, manager, checkpoint_every, resume,
+                current_delta, prior_planner_delta)
             xs = state["x"]
 
             def run_final(upd, con, force_dense):
                 with _evaluation(force_dense):
                     return np.asarray([float(vqe_energy_peps(
                         x.numpy(), nrow, ncol, obs, upd, con, energy_key,
-                        dtype=dtype, device=device)) for x in xs],
+                        dtype=dtype, device=d))
+                        for x, d in zip(xs, member_devices)],
                         dtype=np.float64)
             finals = _escalate(run_final, active_guard, update, contract)
         ehist_arr = (np.stack(ehist) if ehist

@@ -158,6 +158,35 @@ def stream_ptr(device) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
+@functools.lru_cache(maxsize=None)
+def card_count() -> int:
+    """The visible CUDA devices (fixed for the life of the process)."""
+    import torch
+    return torch.cuda.device_count()
+
+
+def launch(fn, device, *args) -> int:
+    """Call the library's launcher ``fn`` with ``args`` and the current
+    stream of ``device`` as its last argument, ``device`` being the host
+    thread's current CUDA device during the call: a launch runs in the
+    current device's context, so an operand on another card than the
+    current one must switch it, and switch it back after.  With one card
+    there is nothing to switch and nothing is queried.  Returns ``fn``'s
+    CUDA error code."""
+    import torch
+    if card_count() == 1:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(0))
+    current = torch._C._cuda_getDevice()
+    index = current if device.index is None else device.index
+    if index == current:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    torch._C._cuda_setDevice(index)
+    try:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    finally:
+        torch._C._cuda_setDevice(current)
+
+
 def f32_matrix(x, name: str, *, allow_transposed: bool = False):
     """Validate a kernel operand on the card: a 2-D, non-empty f32 or bf16
     tensor (bf16 is widened to f32, exactly), row-major contiguous — or,

@@ -70,6 +70,7 @@ namespace repro {
 namespace gram {
 namespace {   // internal linkage: nothing here is shared with another library
 
+constexpr int MAX_DEVICES = 64;  // devices whose shared-memory limit is kept
 constexpr int TT = 6;          // a thread tile is TT x TT entries of G
 constexpr int NT = 12;         // thread tiles along a block tile side
 constexpr int BT = TT * NT;    // block tile side: 72 columns of A
@@ -428,13 +429,19 @@ int launch(const void* a, void* g, void* work, int m, int n, int sms,
   constexpr int E = CPLX ? 2 : 1;
   const Plan p = plan(m, n, sms);
   const int smem = ring_bytes(n, E);
-  static int smem_allowed = 48 * 1024;   // raised only when a ring outgrows it
-  if (smem > smem_allowed) {
+  // raised only when a ring outgrows it; the limit is an attribute of the
+  // kernel in each device's context, so it is kept per device
+  static int smem_allowed[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t derr = cudaGetDevice(&dev);
+  if (derr != cudaSuccess) return static_cast<int>(derr);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (smem > std::max(48 * 1024, smem_allowed[dev])) {
     cudaError_t err = cudaFuncSetAttribute(
         gram_tile_kernel<CPLX, BF16>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_allowed = smem;
+    smem_allowed[dev] = smem;
   }
   // 16-byte copies need 16-byte rows and a 16-byte aligned A
   const int vec16 = (n * E) % 4 == 0 &&

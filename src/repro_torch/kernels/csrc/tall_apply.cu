@@ -74,6 +74,7 @@ namespace repro {
 namespace tall_apply {
 namespace {   // internal linkage: nothing here is shared with another library
 
+constexpr int MAX_DEVICES = 64; // devices whose shared-memory limit is kept
 constexpr int CW = 12;          // floats of a C row per thread
 constexpr int CG = 12;          // column groups per block
 constexpr int NBF = CW * CG;    // floats of a C row per block: 144
@@ -379,13 +380,19 @@ int launch(const void* a, const void* b, void* c, int m, int k, int n,
   constexpr int E = CPLX ? 2 : 1;
   constexpr int smem =
       STAGES * (BM * PA + (SK / E) * NBF) * static_cast<int>(sizeof(float));
-  static bool raised = false;   // the attribute is set once
-  if (!raised) {
+  // the attribute is set once per device: it belongs to the kernel in
+  // each device's context
+  static bool raised[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t derr = cudaGetDevice(&dev);
+  if (derr != cudaSuccess) return static_cast<int>(derr);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!raised[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
         tall_apply_kernel<CPLX, BF16, CONJ_B>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    raised = true;
+    raised[dev] = true;
   }
   // 16-byte copies need rows of whole 16-byte pieces at aligned addresses
   const bool vec_a = (static_cast<long long>(k) * E) % 4 == 0 &&

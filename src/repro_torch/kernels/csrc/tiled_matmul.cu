@@ -69,6 +69,7 @@ namespace repro {
 namespace tmm {
 namespace {   // internal linkage: nothing here is shared with another library
 
+constexpr int MAX_DEVICES = 64;     // devices whose shared-memory limit is kept
 constexpr int TM = 6;              // thread tile: TM rows of C
 constexpr int TN = 6;              // ... by TN columns
 constexpr int BT = 72;             // block tile side
@@ -400,13 +401,19 @@ template <bool TRANS, bool BF16>
 int launch(const float* a, const float* b, float* c, float* work, int m,
            int k, int n, int sms, cudaStream_t st) {
   const Plan p = plan(m, k, n, sms);
-  static bool smem_set = false;   // the ring outgrows the 48 KB default
-  if (!smem_set) {
+  // the ring outgrows the 48 KB default; the attribute belongs to the
+  // kernel in each device's context, so it is set once per device
+  static bool smem_set[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t derr = cudaGetDevice(&dev);
+  if (derr != cudaSuccess) return static_cast<int>(derr);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_set[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
         tiled_matmul_kernel<TRANS, BF16>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, RING_BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = true;
+    smem_set[dev] = true;
   }
   // 16-byte copies need 16-byte rows and a 16-byte aligned base; the
   // row-major A's copies run along K

@@ -166,10 +166,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, s, hq, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = [x for t in (q, k, v, out) for x in t.stride()[:3]]
-    err = build.library().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
-        s, sk, d, int(causal), int(q.dtype == torch.bfloat16), *strides,
-        build.stream_ptr(q.device))
+    err = build.launch(
+        build.library().repro_flash_attention, q.device, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, s, sk, d,
+        int(causal), int(q.dtype == torch.bfloat16), *strides)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out

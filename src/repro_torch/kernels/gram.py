@@ -52,9 +52,9 @@ def _launch(fn: str, x: torch.Tensor, out_dtype, floats: int, compute,
                         n * (n + 1) // 2 * floats),
                        dtype=torch.float32, device=x.device)
     g = torch.empty((n, n), dtype=out_dtype, device=x.device)
-    err = getattr(lib, fn)(
-        x.data_ptr(), g.data_ptr(), work.data_ptr(), m, n, sms,
-        int(compute is not None), build.stream_ptr(x.device))
+    err = build.launch(
+        getattr(lib, fn), x.device, x.data_ptr(), g.data_ptr(),
+        work.data_ptr(), m, n, sms, int(compute is not None))
     build.check(err, name)
     return g
 

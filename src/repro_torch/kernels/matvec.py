@@ -69,10 +69,10 @@ def _launch(fn: str, a: torch.Tensor, b: torch.Tensor, compute,
                          f"{a.stride()}")
     n = b.shape[1]
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    err = getattr(build.library(), fn)(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), m, k, n, a.stride(0),
-        *b.stride(), build.sm_count(a.device), int(compute is not None),
-        *flags, build.stream_ptr(a.device))
+    err = build.launch(
+        getattr(build.library(), fn), a.device, a.data_ptr(), b.data_ptr(),
+        c.data_ptr(), m, k, n, a.stride(0), *b.stride(),
+        build.sm_count(a.device), int(compute is not None), *flags)
     build.check(err, fn)
     return c
 

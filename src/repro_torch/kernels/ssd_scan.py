@@ -202,7 +202,7 @@ def ssd_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     args += [s for t in (x, b, c, a) for s in t.stride()[:2]]
     launch = (build.library().repro_ssd_scan_bf16 if x.dtype == torch.bfloat16
               else build.library().repro_ssd_scan)
-    build.check(launch(*args, build.stream_ptr(x.device)), "ssd_scan")
+    build.check(build.launch(launch, x.device, *args), "ssd_scan")
     ssd_scan.launches += 1
     return (y, state) if return_state else y
 

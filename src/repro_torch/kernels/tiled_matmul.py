@@ -44,9 +44,10 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *,
     c = torch.empty((m, n), dtype=torch.float32, device=x.device)
     work = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
             if splits > 1 else c)
-    err = lib.repro_tiled_matmul_f32(
-        x.data_ptr(), y.data_ptr(), c.data_ptr(), work.data_ptr(), m, k, n,
-        int(trans), sms, int(compute is not None), build.stream_ptr(x.device))
+    err = build.launch(
+        lib.repro_tiled_matmul_f32, x.device, x.data_ptr(), y.data_ptr(),
+        c.data_ptr(), work.data_ptr(), m, k, n, int(trans), sms,
+        int(compute is not None))
     build.check(err, "tiled_matmul")
     tiled_matmul.launches += 1
     return c.to(torch.promote_types(a.dtype, b.dtype))

@@ -99,9 +99,10 @@ def _launch(fn, lib_fn, xs, out_shape, work, axes, flags):
         if x.is_conj():
             flags |= _CONJ0 << i
     args = array("q", (len(out_shape), *out_shape, *axes))
-    err = getattr(build.library(), lib_fn)(
+    err = build.launch(
+        getattr(build.library(), lib_fn), out.device,
         *(x.data_ptr() for x in xs), out.data_ptr(), args.buffer_info()[0],
-        flags, build.stream_ptr(out.device))
+        flags)
     build.check(err, fn)
     return out, True
 

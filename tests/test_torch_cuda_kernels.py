@@ -714,3 +714,56 @@ def test_zipup_engine_reshape_after_the_site_is_a_view(cuda, twolayer):
         dispatch.set_kernel_backend(prev)
     assert len(seen) == 1 and seen[0].is_contiguous()
     assert carry.data_ptr() == seen[0].data_ptr()
+
+
+# ------------------------------------------------- device not current ----
+
+@pytest.fixture
+def last_cuda(cuda):
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs 2 or more CUDA devices (a launch on a device "
+                    "that is not the current one)")
+    return torch.device("cuda", count - 1)
+
+
+def _peps_kernel_call(kernel, dev):
+    """(launch, plain version, launch counter) of one PEPS kernel at its
+    main-path shape, the operands on ``dev``."""
+    if kernel == "gram_complex":
+        a = _c64(110, 82944, 72).to(dev)
+        return (lambda: KG.gram_complex(a),
+                lambda: KG.gram_complex_plain(a),
+                lambda: KG.gram_complex.launches)
+    if kernel == "tall_apply_complex":
+        a, b = _c64(112, 82944, 72).to(dev), _c64(114, 72, 72).to(dev)
+        return (lambda: KM.tall_apply_complex(a, b),
+                lambda: KM.tall_apply_complex_plain(a, b),
+                lambda: KM.tall_apply_complex.launches)
+    site = {"zipup_pair": "onelayer", "zipup_chain": "twolayer",
+            "pair_merge": "pair"}[kernel]
+    xs = [x.to(dev) for x in _zipup_operands(116, site, 6, 36)]
+    fn, plain, counter = ZIPUP_SITES[site]
+    return (lambda: fn(*xs), lambda: plain(*xs),
+            lambda: KZ.kernel_launches()[counter])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gram_complex", "tall_apply_complex",
+                                    "zipup_pair", "zipup_chain",
+                                    "pair_merge"])
+def test_peps_kernel_launches_on_a_device_that_is_not_current(last_cuda,
+                                                              kernel):
+    """With cuda:0 current, each PEPS kernel on operands of the last card
+    launches there (one launch, in that card's stream), matches its plain
+    version, repeats bit for bit, and leaves cuda:0 current."""
+    with torch.cuda.device(0):
+        launch, plain, launches = _peps_kernel_call(kernel, last_cuda)
+        before = launches()
+        got = launch()
+        torch.cuda.synchronize(last_cuda)
+        assert launches() == before + 1
+        assert torch.cuda.current_device() == 0
+        assert got.device == last_cuda
+        assert _crel(got, plain()) <= F32_TOL
+        assert torch.equal(launch(), got)

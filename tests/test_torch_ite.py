@@ -48,6 +48,7 @@ from repro_torch.core import ite as TI  # noqa: E402
 from repro_torch.core import peps as TP  # noqa: E402
 from repro_torch.core import planner as TPL  # noqa: E402
 from repro_torch.core import svd_grad  # noqa: E402
+from repro_torch.core.distributed import DistributedBMPS  # noqa: E402
 from repro_torch.core.einsumsvd import RandomizedSVD as TRand  # noqa: E402
 from repro_torch.core.environments import row_environments, \
     strip_boundary  # noqa: E402
@@ -321,11 +322,21 @@ def test_unported_and_unknown_options_raise(tmp_path):
     res = TI.ite_run(state, obs, 0.05, 1, TP.QRUpdate(rank=2), TB.BMPS(4),
                      checkpoint_dir=str(tmp_path), checkpoint_every=1)
     assert res.resumed_from is None and (tmp_path / "step_00000001").is_dir()
-    with pytest.raises(NotImplementedError, match="PEPS item 9"):
+    with pytest.raises(TypeError, match="env_contract=str"):
         TP.FullUpdate(rank=2, env_contract="distributed")
     upd = TP.FullUpdate(rank=2, env_contract=TB.BMPS(6))
     assert TFU.env_option(upd) == TB.BMPS(6)
     assert TFU.env_option(TP.FullUpdate(rank=2, chi=5)) == TB.BMPS(5)
+    # the column-sharded environment sweeps are ported (PEPS item 9): the
+    # same full-update ITE, its environment levels bit for bit
+    dist = DistributedBMPS(6, n_shards=2, block=1, devices=(CPU,))
+    dist_upd = TP.FullUpdate(rank=2, env_contract=dist)
+    assert TFU.env_option(dist_upd) == dist
+    runs = [TI.ite_run(state, obs, 0.05, 2, u, TB.BMPS(4), key=TP.TorchKey(3))
+            for u in (upd, dist_upd)]
+    assert runs[0].energies == runs[1].energies
+    for row0, row1 in zip(runs[0].state.sites, runs[1].state.sites):
+        assert all(torch.equal(a, b) for a, b in zip(row0, row1))
 
 
 @pytest.mark.parametrize("nan_in", ["w", "v"])

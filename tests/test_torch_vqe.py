@@ -34,6 +34,7 @@ from repro_torch.core.einsumsvd import RandomizedSVD  # noqa: E402
 from repro_torch.core.keys import TorchKey  # noqa: E402
 from repro_torch.core.observable import tfi_hamiltonian  # noqa: E402
 from repro_torch.core.peps import QRUpdate  # noqa: E402
+from repro_torch.launch.mesh import peps_mesh  # noqa: E402
 from repro_torch.optim import adamw as TA  # noqa: E402
 
 AD_FD_RTOL = 1e-4     # AD vs central FD, relative (the reference's bound)
@@ -328,8 +329,15 @@ def test_lapack_qr_update_has_no_wide_derivative():
 def test_not_ported_options_raise(tmp_path):
     obs = tfi_hamiltonian(2, 2)
     kw = dict(n_layers=1, max_bond=2, maxiter=1, device=CPU)
-    with pytest.raises(NotImplementedError, match="PEPS item 9"):
-        TV.run_vqe(2, 2, obs, **kw, mesh=object(), method="adam")
+    # mesh-placed ensembles are ported (PEPS item 9): the same run
+    runs = [TV.run_vqe(2, 2, obs, **kw, method="adam", ensemble=4, mesh=m)
+            for m in (None, peps_mesh(2, 2, devices=(CPU,)))]
+    for name in ("ensemble_thetas", "ensemble_energies", "ensemble_history"):
+        np.testing.assert_array_equal(getattr(runs[0], name),
+                                      getattr(runs[1], name))
+    with pytest.raises(ValueError, match="mesh= places the members"):
+        TV.run_vqe(2, 2, obs, **kw, method="SLSQP",
+                   mesh=peps_mesh(2, 2, devices=(CPU,)))
     # the runtime guard and checkpoint/resume are ported (PEPS item 7)
     res = TV.run_vqe(2, 2, obs, **kw, method="spsa", guard=True,
                      checkpoint_dir=str(tmp_path), checkpoint_every=1)

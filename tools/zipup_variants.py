@@ -18,7 +18,9 @@ time from CUDA events (median of 7 x 20 calls), then the kernel's device
 time from torch.profiler (mean of 200 calls).  Then the committed wrapper's
 host time is taken apart with the host clock (mean of 2,000 calls, no
 synchronisation inside): the whole call through dispatch, the kernel form,
-its operand checks, the output allocation, and the bare ctypes launch.
+its operand checks, the output allocation, the bare ctypes launch, the
+launch with its stream looked up (as before the device guard) and the
+same launch through ``build.launch`` (the stream and the guard).
 Prints one JSON line per measurement, and the card's ``nvidia-smi`` line.
 """
 from __future__ import annotations
@@ -267,6 +269,15 @@ def host_breakdown(site, xs):
         "torch_empty_us": host_us(lambda: torch.empty(
             out.shape, dtype=work, device=out.device)),
         "bare_ctypes_launch_us": host_us(lambda: bare(*args)),
+        # the launch as it was before the device guard: the stream looked
+        # up for the call, no guard
+        "stream_ptr_launch_us": host_us(lambda: bare(
+            *args[:-1], build.stream_ptr(out.device))),
+        # the same launch through build.launch: the current stream's
+        # lookup and the device guard (a cached card count on one card)
+        # on top of the bare call
+        "guarded_launch_us": host_us(lambda: build.launch(
+            bare, out.device, *args[:-1])),
     }
 
 
