@@ -43,6 +43,13 @@ gate with sharded environments, an ensemble of 8x8 D=6 members evolved
 and contracted on a mesh (members bit for bit alone), and a mesh-placed
 VQE ensemble bit for bit the unplaced one; with two or more cards each
 PEPS kernel also launches on the last card while the first is current.
+Then it runs the same state's chi-saturated rows through the wavefront
+superstep (``spmd`` phase: ``wavefront="spmd"``, one worker thread and
+one stream per shard): norms in turns with the host pipeline and
+single-device, launches equal, the energy's levels bit for bit theirs,
+also with every halo's sender held back by ``torch.cuda._sleep``, an
+``"auto"`` norm, busy seconds by stream and card of a traced norm, and a
+complex128 norm on the reference's 5x8 lattice.
 Then it runs
 imaginary time evolution on 4x4 grids (``ite`` phase): the TFI model with
 the full update at D=3 against the QR update and the exact statevector
@@ -96,7 +103,8 @@ bit.  Every profiled trace must be whole (``trace_complete``: each kernel
 launch the runtime recorded has its device kernel; pad launches at both
 ends absorb the records the profiler drops at a trace's edges), or is
 taken again, and after three incomplete traces the run fails.  ``python3 chip_smoke.py train`` (or ``kernels``, ``wrappers``,
-``lm_kernels``, ``ite``, ``vqe``, ``distributed``) runs those phases alone
+``lm_kernels``, ``ite``, ``vqe``, ``distributed``, ``spmd``) runs those
+phases alone
 and prints no result line.  Each phase
 prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
@@ -266,6 +274,22 @@ DIST_MEMBER_SCALE = 5.2
 DIST_VQE_ENSEMBLE = 8
 DIST_VQE_STEPS = 2
 DIST_BUDGET_S = 90.0
+
+# The wavefront superstep (spmd phase, PEPS item 9): the same c64 state in
+# forced kernel mode under DistributedBMPS(wavefront="spmd") over every
+# visible card (its plan takes two shards of four columns on the 8x8 D=6
+# chi-64 lattice), against the host pipeline and single-device; one sweep
+# with each halo's sender stream held back by torch.cuda._sleep before the
+# halo is written, which a receiver that skipped its wait would read stale.
+SPMD_SHARDS = 4
+SPMD_REPEATS = 3           # superstep norms, in turns with host and single
+TOL_SPMD = 1e-6            # superstep vs single-device c64 norm and energy
+SPMD_SLEEP_CYCLES = 5_000_000   # about 3 ms of the sender's stream a halo
+# c128 DirectSVD norm on the reference's grid (tests/test_spmd.py)
+SPMD_SMALL = (5, 8, 2, 8)  # nrow, ncol, bond, chi
+SPMD_SMALL_SCALE = 2.0
+TOL_SPMD_C128 = 1e-10
+SPMD_BUDGET_S = 60.0
 
 # PEPS query serving (serving phase): the launcher's traffic
 # (src/repro_torch/launch/serve.py) against the main-path state and a second
@@ -846,14 +870,20 @@ def _launches_and_kernels(prof):
     """(a trace's kernel launch records, the runtime's ``cudaLaunchKernel``,
     the driver's ``cuLaunchKernel`` and their variants, as (host start ns,
     correlation id) in the order of their start; the trace's device
-    events by correlation id)."""
+    events by correlation id).  Read once per trace and kept on ``prof``:
+    a norm's trace holds some 200,000 events, and each reader of the
+    trace (record, completeness, kernels, busy seconds) needs them."""
+    cached = getattr(prof, "_repro_launches_and_kernels", None)
+    if cached is not None:
+        return cached
     launches, device = [], {}
     for evt in _trace_events(prof):
         if _is_device(evt):
             device[evt.correlation_id()] = evt
         elif LAUNCH_CALL.match(evt.name()):
             launches.append((evt.start_ns(), evt.correlation_id()))
-    return sorted(launches), device
+    prof._repro_launches_and_kernels = (sorted(launches), device)
+    return prof._repro_launches_and_kernels
 
 
 def trace_complete(prof, pad=0) -> list:
@@ -2258,6 +2288,22 @@ def distributed_ensembles(torch, np):
     return ens, vqe
 
 
+def standalone_main_path(torch, np):
+    """The c64 main-path state and its single-device kernel run, for a
+    phase run alone: (state, the main-path numbers the phase reads)."""
+    rng = np.random.default_rng(SEED)
+    thetas = rng.uniform(0.0, THETA_MAX, size=(LAYERS, GRID * GRID))
+    bits_list = likely_bitstrings(np, thetas, GRID, 1)
+    kern, state = run_main_path(torch, torch.complex64, "kernel", thetas,
+                                bits_list)
+    return state, {"norm_c64_kernel": kern["norm"],
+                   "energy_c64_kernel": kern["energy"],
+                   "norm_c64_kernel_s": kern["norm_s"],
+                   "energy_c64_kernel_s": kern["energy_s"],
+                   "bits_list": bits_list,
+                   "amplitudes_c64_kernel": kern["amplitudes"]}
+
+
 def phase_distributed(torch, np, state=None, main=None):
     """PEPS item 9's first half on the card: column-sharded contraction of
     the c64 main-path state, the c128 checks, ensembles and the mesh VQE.
@@ -2273,17 +2319,7 @@ def phase_distributed(torch, np, state=None, main=None):
     cross = distributed_cross_device(torch)
     cross["seconds"] = time.perf_counter() - t0
     if state is None:
-        rng = np.random.default_rng(SEED)
-        thetas = rng.uniform(0.0, THETA_MAX, size=(LAYERS, GRID * GRID))
-        bits_list = likely_bitstrings(np, thetas, GRID, 1)
-        kern, state = run_main_path(torch, torch.complex64, "kernel", thetas,
-                                    bits_list)
-        main = {"norm_c64_kernel": kern["norm"],
-                "energy_c64_kernel": kern["energy"],
-                "norm_c64_kernel_s": kern["norm_s"],
-                "energy_c64_kernel_s": kern["energy_s"],
-                "bits_list": bits_list,
-                "amplitudes_c64_kernel": kern["amplitudes"]}
+        state, main = standalone_main_path(torch, np)
     # the budget counts the path's work: not the standalone set-up, nor the
     # cross-device comparisons
     t_phase = time.perf_counter()
@@ -2320,6 +2356,266 @@ def phase_distributed(torch, np, state=None, main=None):
                   for label, _ in DIST_LAYOUTS},
                "single_norm_s": path["single"]["norm_s"],
                "vqe_bit_for_bit": vqe["bit_for_bit"]}
+    return launches, summary
+
+
+# ---------------------------------------------------------------------------
+# Wavefront superstep (spmd phase, PEPS item 9)
+# ---------------------------------------------------------------------------
+
+def _union_s(intervals) -> float:
+    """Seconds covered by a list of (start ns, end ns) intervals."""
+    busy, end = 0, None
+    for lo, hi in sorted(intervals):
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    return busy / 1e9
+
+
+def busy_by_stream(prof, pad=0) -> dict:
+    """Device time of a trace (the pad launches of :func:`traced` left
+    out): ``by_card`` {"cuda:i": {"streams": {stream id: [kernels, busy
+    s]}, "busy_s": the union of the card's kernel intervals}}, and over
+    all cards ``sum_s`` (the cards' busy seconds added) and ``union_s``
+    (the seconds in which any card was busy).  Where two streams of a card
+    ran at once, its union is less than its streams' sum; where two cards
+    did, ``union_s`` is less than ``sum_s``."""
+    launches, device = _launches_and_kernels(prof)
+    pads = {c for _, c in launches[:pad] + launches[len(launches) - pad:]}
+    spans = {}
+    cards = {}
+    for c, evt in device.items():
+        if c in pads:
+            continue
+        card = f"cuda:{evt.device_index()}"
+        row = cards.setdefault(card, {"streams": {}})["streams"].setdefault(
+            str(evt.device_resource_id()), [0, 0.0])
+        row[0] += 1
+        row[1] += evt.duration_ns() / 1e9
+        spans.setdefault(card, []).append((evt.start_ns(), evt.end_ns()))
+    for card, ivs in spans.items():
+        cards[card]["busy_s"] = _union_s(ivs)
+    return {"by_card": cards,
+            "sum_s": sum(c["busy_s"] for c in cards.values()),
+            "union_s": _union_s([iv for ivs in spans.values()
+                                 for iv in ivs])}
+
+
+def spmd_plans() -> list:
+    """The superstep plans made so far, as (n, w, jl, jr)."""
+    from repro_torch.core import spmd
+    return sorted({(p.n, p.w, p.jl, p.jr) for p in spmd._PLAN_CACHE.values()
+                   if p is not None})
+
+
+def spmd_sweep(torch, fn):
+    """``fn()`` as :func:`dist_run` runs it, with the superstep's row
+    counts of the call: (result, wall seconds, launches, counts)."""
+    from repro_torch.core import spmd
+    spmd.reset_stats()
+    out, wall, launched = dist_run(torch, fn)
+    st = spmd.stats()
+    return out, wall, launched, {k: st[k] for k in (
+        "rows_spmd", "rows_host", "superstep_calls", "superstep_builds")}
+
+
+def spmd_main_path(torch, state, main, devices):
+    """The c64 main-path norm and TFI energy under ``wavefront="spmd"``:
+    norms in turns with the host pipeline and single-device (single, host,
+    SPMD_REPEATS superstep sweeps, host, single), every superstep row count
+    and plan, launches equal to single-device, one ``"auto"`` norm (the
+    superstep with two or more cards, the host pipeline on one); the top
+    and bottom levels
+    of the energy bit for bit the host pipeline's and single-device's,
+    also in a sweep with every halo's sender held back (``_HALO_HOOK``);
+    one traced superstep norm for each stream's and card's busy seconds,
+    and with two or more cards one traced host-pipeline norm beside it
+    (on one card the profile phase's norm is the host pipeline's).  Each
+    part's seconds go into ``parts``."""
+    from repro_torch.core import spmd
+    from repro_torch.core.bmps import BMPS, norm_squared
+    from repro_torch.core.distributed import DistributedBMPS
+    from repro_torch.core.environments import row_environments
+    from repro_torch.core.expectation import DEFAULT_EXPECTATION_KEY_SEED, \
+        expectation_from_envs
+    from repro_torch.core.keys import TorchKey
+    from repro_torch.core.observable import tfi_hamiltonian
+
+    obs = tfi_hamiltonian(GRID, GRID)
+    key = TorchKey(DEFAULT_EXPECTATION_KEY_SEED)
+    parts = {}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[name] = now - t_part
+        t_part = now
+    opts = {"single": BMPS.randomized(CHI, niter=4, oversample=8)}
+    for mode in ("host", "spmd", "auto"):
+        opts[mode] = DistributedBMPS.randomized(
+            CHI, niter=4, oversample=8, n_shards=SPMD_SHARDS,
+            devices=devices, wavefront=mode)
+    turns = (["single", "host"] + ["spmd"] * SPMD_REPEATS
+             + ["host", "single"])
+    norms = {}
+    for mode in turns:
+        val, wall, launched, counts = spmd_sweep(
+            torch, lambda: norm_squared(state, opts[mode]))
+        norms.setdefault(mode, []).append(
+            {"norm": complex(val), "s": wall, "launches": launched,
+             **({"counts": counts} if mode == "spmd" else {})})
+    part("norms")
+    plans = spmd_plans()
+    single_l = norms["single"][0]["launches"]
+    out = {"plans": [list(p) for p in plans],
+           "norm_s": {m: [r["s"] for r in rows] for m, rows in norms.items()},
+           "sweeps": [r["counts"] for r in norms["spmd"]],
+           "launches_per_norm": {"single": single_l,
+                                 "spmd": norms["spmd"][0]["launches"]}}
+    want = main["norm_c64_kernel"]
+    first = norms["spmd"][0]["norm"]
+    out["norm"] = _as_pair(first)
+    out["norm_vs_main"] = rel(first, want)
+    out["norm_vs_host"] = rel(first, norms["host"][0]["norm"])
+    check(all(r["counts"]["rows_spmd"] > 0 for r in norms["spmd"])
+          and plans, f"the superstep never engaged: {out}")
+    check(all(r["norm"] == first for r in norms["spmd"])
+          and out["norm_vs_main"] <= TOL_SPMD
+          and out["norm_vs_host"] <= TOL_SPMD,
+          f"superstep norms against single-device and the host pipeline: "
+          f"{norms}")
+    for r in norms["spmd"] + norms["host"]:
+        check(all(r["launches"][k] == single_l[k] and single_l[k] > 0
+                  for k in TWO_LAYER_KERNELS),
+              f"sharded norm launched {r['launches']} against {single_l} "
+              f"single-device")
+    # "auto" engages only where the plan's two shards sit on two cards
+    val, wall, _, counts = spmd_sweep(
+        torch, lambda: norm_squared(state, opts["auto"]))
+    out["auto"] = {"s": wall, "counts": counts}
+    engaged = len(set(devices)) > 1
+    check(complex(val) == first
+          and (counts["rows_spmd"] > 0) == engaged,
+          f"auto norm {complex(val)} against {first}, {counts}")
+
+    envs, counts = {}, {}
+    for mode in ("single", "host", "spmd"):
+        envs[mode], wall, _, counts[mode] = spmd_sweep(
+            torch, lambda: row_environments(state, opts[mode], key))
+        out.setdefault("environments_s", {})[mode] = wall
+    part("environments")
+
+    def perturb(shard, kind, t):
+        torch.cuda._sleep(SPMD_SLEEP_CYCLES)
+        return t.clone()    # written only after the sleep
+    spmd._HALO_HOOK = perturb
+    try:
+        envs["perturbed"], wall, _, counts["perturbed"] = spmd_sweep(
+            torch, lambda: row_environments(state, opts["spmd"], key))
+    finally:
+        spmd._HALO_HOOK = None
+    out["environments_s"]["perturbed"] = wall
+    part("perturbed")
+    out["environment_sweeps"] = {m: counts[m] for m in ("spmd", "perturbed")}
+
+    def same(a, b):
+        return all(torch.equal(x, y) for la, lb in zip(a[0] + a[1],
+                                                       b[0] + b[1])
+                   for x, y in zip(la, lb))
+    out["levels_bit_for_bit"] = {
+        m: same(envs[m], envs["host"]) and same(envs[m], envs["single"])
+        for m in ("spmd", "perturbed")}
+    check(all(out["levels_bit_for_bit"].values())
+          and all(c["rows_spmd"] > 0
+                  for c in out["environment_sweeps"].values()),
+          f"superstep levels against the host pipeline and single-device: "
+          f"{out['levels_bit_for_bit']}, {out['environment_sweeps']}")
+    energy = complex(expectation_from_envs(state, obs, *envs["spmd"]))
+    out["energy"] = _as_pair(energy)
+    out["energy_vs_main"] = rel(energy, main["energy_c64_kernel"])
+    check(out["energy_vs_main"] <= TOL_SPMD,
+          f"superstep energy against single-device: {out['energy_vs_main']}")
+    part("energy_strips")
+
+    out["profile"] = {}
+    for mode in (["host"] if len(set(devices)) > 1 else []) + ["spmd"]:
+        _, wall, trace, prof = traced(
+            torch, lambda: norm_squared(state, opts[mode]), f"{mode} norm",
+            cpu=False)
+        out["profile"][mode] = {
+            "wall_s": wall, "trace": trace["trace"],
+            "trace_attempts": trace["trace_attempts"],
+            "busy_by_stream": busy_by_stream(prof, TRACE_PAD_KERNELS)}
+        del prof
+        part(f"profile_{mode}")
+    out["parts"] = parts
+    return out
+
+
+def spmd_small(torch, devices):
+    """c128: the reference's 5x8 D=2 chi-8 lattice, DirectSVD, under the
+    superstep against single-device (TOL_SPMD_C128)."""
+    from repro_torch.core.bmps import BMPS, norm_squared
+    from repro_torch.core.distributed import DistributedBMPS
+    from repro_torch.core.einsumsvd import DirectSVD
+    from repro_torch.core.keys import TorchKey
+    from repro_torch.core.peps import PEPS, random_peps
+
+    nrow, ncol, bond, chi = SPMD_SMALL
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    st = random_peps(nrow, ncol, bond, gen)
+    st = PEPS([[t * SPMD_SMALL_SCALE for t in row] for row in st.sites])
+    want = norm_squared(st, BMPS(chi, DirectSVD()), TorchKey(7))
+    got, wall, _, counts = spmd_sweep(torch, lambda: norm_squared(
+        st, DistributedBMPS(chi, DirectSVD(), n_shards=SPMD_SHARDS,
+                            devices=devices, wavefront="spmd"), TorchKey(7)))
+    out = {"lattice": list(SPMD_SMALL), "rel": rel(complex(got),
+                                                   complex(want)),
+           "s": wall, "counts": counts}
+    check(out["rel"] <= TOL_SPMD_C128 and counts["rows_spmd"] > 0,
+          f"superstep c128 norm against single-device: {out}")
+    return out
+
+
+def phase_spmd(torch, np, state=None, main=None):
+    """PEPS item 9's superstep on the card: the c64 main-path state in
+    forced kernel mode under ``wavefront="spmd"`` (one worker thread and
+    one stream per shard) against the host pipeline and single-device, and
+    the c128 reference lattice.  Alone (``python3 chip_smoke.py spmd``) it
+    builds the main-path state and its single-device kernel run itself.
+    Returns the PEPS kernels' launches over the phase and its summary."""
+    from repro_torch.core import spmd
+    from repro_torch.kernels import dispatch
+
+    devices = tuple(torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count()))
+    if state is None:
+        state, main = standalone_main_path(torch, np)
+    t_phase = time.perf_counter()
+    reset_peps_launches()
+    prev = dispatch.set_kernel_backend("kernel")
+    try:
+        path = spmd_main_path(torch, state, main, devices)
+    finally:
+        dispatch.set_kernel_backend(prev)
+    small = spmd_small(torch, devices)
+    spmd.clear()    # stops the worker threads
+    launches = peps_launches()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "spmd", "devices": [str(d) for d in devices],
+          "distinct": len(set(devices)), "shards": SPMD_SHARDS,
+          "main_path": path, "c128": small, "launches": launches,
+          "seconds": seconds})
+    check(seconds <= SPMD_BUDGET_S,
+          f"spmd phase took {seconds:.1f} s (budget {SPMD_BUDGET_S} s)")
+    summary = {"seconds": seconds, "devices": len(devices),
+               "plans": path["plans"], "norm_s": path["norm_s"],
+               "levels_bit_for_bit": path["levels_bit_for_bit"]}
     return launches, summary
 
 
@@ -4406,6 +4702,7 @@ def main() -> int:
                       "ite": (phase_ite, torch, np),
                       "vqe": (phase_vqe, torch, np),
                       "distributed": (phase_distributed, torch, np),
+                      "spmd": (phase_spmd, torch, np),
                       "train": (phase_train, torch, np)}
         unknown = [name for name in only if name not in standalone]
         if unknown:
@@ -4441,10 +4738,12 @@ def main() -> int:
                                          state, main_info)
         distributed, distributed_summary = timed(
             "distributed", phase_distributed, torch, np, state, main_info)
+        spmd_launches, spmd_summary = timed(
+            "spmd", phase_spmd, torch, np, state, main_info)
         del state
         torch.cuda.empty_cache()
         by_path = {"peps": dict(launches), "serving": serving,
-                   "distributed": distributed,
+                   "distributed": distributed, "spmd": spmd_launches,
                    "ite": timed("ite", phase_ite, torch, np)}
         torch.cuda.empty_cache()
         by_path["vqe"], vqe_summary = timed("vqe", phase_vqe, torch, np)
@@ -4507,7 +4806,7 @@ def main() -> int:
                 "src/repro/kernels/zipup_block.py:101"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": phase_s, "serving": serving_summary,
-          "distributed": distributed_summary,
+          "distributed": distributed_summary, "spmd": spmd_summary,
           "vqe": vqe_summary, "robustness": robustness_summary})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -31,17 +31,25 @@ no-op when the two shards share a device, so one card moves no bytes.
 
 Scheduling (``wavefront=``)
 ---------------------------
-Only the host pipeline is ported: blocks are dispatched in order from one
+``"host"``: the host pipeline.  Blocks are dispatched in order from one
 host thread, and PyTorch's asynchronous launches let shard ``s`` start row
 ``i+1`` while shard ``s+1`` still works on row ``i`` — as far as the host
 is not held.  Each einsumsvd reads a value back to the host (the
 regularized eigh's retry check, cuSOLVER's info), so on several cards the
-pipeline mostly serializes.  The reference's compiled ``shard_map`` +
-``ppermute`` superstep (``repro.core.spmd``) is not ported:
-``wavefront="auto"`` runs the host pipeline (as the reference's "auto"
-does on fewer than two distinct devices) and ``"spmd"`` raises
-``NotImplementedError`` naming ROADMAP PEPS item 9.  Values never depend
-on the mode.
+pipeline mostly serializes.
+
+``"spmd"`` and ``"auto"``: :func:`_sweep_rows` hands each run of
+chi-saturated rows that :func:`repro_torch.core.spmd.plan_run` accepts to
+the wavefront superstep (:func:`repro_torch.core.spmd.absorb_rows`: one
+worker thread and one stream per shard, so a read-back holds its own
+shard alone), and absorbs every other row (the bond ramp, the last row)
+on the host pipeline, counted by ``spmd.stats()["rows_host"]``.  The
+superstep's own contiguous split goes back to the column owners after
+it.  ``"spmd"`` falls back to the superstep's single-shard plan where no
+split exists and warns when a sweep never engaged it; ``"auto"`` engages
+only where two of the plan's shards sit on distinct devices (as the
+reference's does), so on one device it is the host pipeline.  Values
+never depend on the mode.
 
 Equivalence
 -----------
@@ -64,11 +72,13 @@ Usage: pass a :class:`DistributedBMPS` anywhere a
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import spmd
 from repro_torch.core.einsumsvd import DirectSVD, RandomizedSVD
 from repro_torch.core.engines import get_engine
 from repro_torch.core.engines.zipup import (_keys, zipup_block,
@@ -129,10 +139,12 @@ class DistributedBMPS:
     layout also runs, with the same values, on one device.  Left empty, it
     is every visible CUDA device for a CUDA state and the CPU for a CPU
     state (:meth:`resolve`); a state is never moved between the CPU and a
-    card.  ``wavefront``: ``"host"`` and ``"auto"`` run the host pipeline,
-    ``"spmd"`` raises (see the module docstring).  Engines without block
-    structure (``supports_blocks=False``, e.g. ``"variational"``) absorb
-    each row whole on the first device, between the sharded layouts."""
+    card.  ``wavefront``: ``"host"`` runs the host pipeline, ``"spmd"``
+    and ``"auto"`` hand the chi-saturated rows to the superstep of
+    :mod:`repro_torch.core.spmd` (see the module docstring).  Engines
+    without block structure (``supports_blocks=False``, e.g.
+    ``"variational"``) absorb each row whole on the first device, between
+    the sharded layouts."""
     chi: int
     svd: object = DirectSVD()
     n_shards: Optional[int] = None
@@ -153,11 +165,6 @@ class DistributedBMPS:
                 f"boundary engine, but engine {eng.name!r} has "
                 f"supports_blocks=False: use wavefront='host', which runs "
                 f"such engines row-local")
-        if self.wavefront == "spmd":
-            raise NotImplementedError(
-                "wavefront='spmd': the compiled superstep is not ported; "
-                "'host' and 'auto' run the host pipeline with the same "
-                "values (ROADMAP PEPS item 9)")
         policy = resolve_precision(self.precision)
         object.__setattr__(self, "svd", wrap_svd(self.svd, policy))
         object.__setattr__(self, "devices",
@@ -295,18 +302,53 @@ def _row_onelayer(svec_cols, row, option: DistributedBMPS, layout, devices,
 
 def _sweep_rows(svec_cols, grids, option: DistributedBMPS, layout, devices,
                 row_keys, kernel_name: str, collect: bool = False):
-    """Absorb all rows of ``grids`` into ``svec_cols`` on the host pipeline.
+    """Absorb all rows of ``grids`` into ``svec_cols``, each run of rows
+    that the superstep plans on :func:`repro_torch.core.spmd.absorb_rows`
+    and every other row on the host pipeline (``"host"``: every row).
 
     ``grids`` is ``(rows,)`` one-layer or ``(bra_rows, ket_rows)``
     two-layer (the same list object twice for <psi|psi>); ``row_keys[i]``
-    is row ``i``'s key.  ``collect=True`` also returns every boundary
-    level gathered to the first device (environment sweeps)."""
+    is row ``i``'s key, split into column keys alike on both paths.
+    ``collect=True`` also returns every boundary level gathered to the
+    first device (environment sweeps)."""
     eng = get_engine(option.engine)
     if not eng.supports_blocks:
         return _sweep_rows_rowlocal(eng, svec_cols, grids, option, layout,
                                     devices, row_keys, kernel_name, collect)
+    nrow = len(grids[0])
+    mode = option.wavefront
+    kernel = None
+    if mode != "host":
+        kernel = spmd.TWO_LAYER if kernel_name == "twolayer" else \
+            spmd.ONE_LAYER
     levels = []
-    for i in range(len(grids[0])):
+    used_spmd = False
+    i = 0
+    while i < nrow:
+        run, plan = 0, None
+        if kernel is not None:
+            run, plan = spmd.plan_run(kernel, svec_cols, grids, i, option.chi,
+                                      option.svd, layout.n_shards, devices,
+                                      mode)
+        if run:
+            slices = []
+            for g in grids:
+                if slices and g is grids[0]:
+                    slices.append(slices[0])
+                else:
+                    slices.append([g[i + j] for j in range(run)])
+            svec_cols, lv = spmd.absorb_rows(
+                kernel, svec_cols, tuple(slices), option.chi, option.svd,
+                plan, row_keys[i:i + run], devices, collect=collect)
+            # back to the column owners (a no-op where the superstep's
+            # split is the layout's)
+            svec_cols = [_move(t, _owner_device(layout, devices, c))
+                         for c, t in enumerate(svec_cols)]
+            if collect:
+                levels.extend(lv)
+            used_spmd = True
+            i += run
+            continue
         if kernel_name == "twolayer":
             svec_cols = _row_twolayer(svec_cols, grids[0][i], grids[1][i],
                                       option, layout, devices, row_keys[i])
@@ -315,6 +357,15 @@ def _sweep_rows(svec_cols, grids, option: DistributedBMPS, layout, devices,
                                       devices, row_keys[i])
         if collect:
             levels.append(gather_columns(svec_cols, devices[0]))
+        if kernel is not None:
+            spmd.note_host_rows(1)
+        i += 1
+    if mode == "spmd" and not used_spmd and nrow > 0:
+        warnings.warn(
+            "wavefront='spmd' sweep never engaged the superstep (all rows "
+            "were bond-ramp rows or the last row): the whole sweep ran on "
+            "the host pipeline. Use wavefront='auto' to silence this.",
+            stacklevel=3)
     return svec_cols, levels
 
 

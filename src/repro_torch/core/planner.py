@@ -19,7 +19,11 @@ Counterpart of ``repro.core.planner``.  Two memoization layers keyed by a
    eagerly, so nothing is compiled; the cache keeps the reference's
    structure and counters, and is where a CUDA-graph capture would go.
 
-Hit/miss counters (:func:`stats`) tick at Python call time.
+Hit/miss counters (:func:`stats`) tick at Python call time.  Several
+threads may fill the caches at once (the worker threads of
+:mod:`repro_torch.core.spmd`): a lookup, its miss and its fill happen under
+one lock, so a signature misses once whatever the threads' order, and the
+counters tick under :data:`repro_torch.counting.LOCK`.
 :func:`disabled` switches both layers off.  :func:`save_path_cache` /
 :func:`load_path_cache` persist the path cache across processes.
 """
@@ -29,17 +33,22 @@ import contextlib
 import hashlib
 import json
 import os
+import threading
 import warnings
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from repro_torch import counting
 from repro_torch.kernels import dispatch as _dispatch
 
 _CONFIG = {"path_cache": True, "fusion": True}
 
 _PATH_CACHE: Dict[tuple, list] = {}
 _FUSED_CACHE: Dict[tuple, object] = {}
+# held from a cache lookup through its fill (reentrant: a ``make`` may
+# reach the path cache)
+_CACHE_LOCK = threading.RLock()
 
 _COUNTERS = {
     "path_hits": 0,
@@ -55,7 +64,8 @@ def stats() -> Dict[str, int]:
     """Current cache counters + sizes + kernel-dispatch counters + runtime
     guard counters (copies)."""
     from repro_torch.core import runtime_guard
-    out = dict(_COUNTERS)
+    with counting.LOCK:
+        out = dict(_COUNTERS)
     out["path_cache_size"] = len(_PATH_CACHE)
     out["fused_cache_size"] = len(_FUSED_CACHE)
     out.update(_dispatch.dispatch_stats())
@@ -73,16 +83,18 @@ def stats_since(before: Dict[str, int]) -> Dict[str, int]:
 
 def reset_stats() -> None:
     from repro_torch.core import runtime_guard
-    for k in _COUNTERS:
-        _COUNTERS[k] = 0
+    with counting.LOCK:
+        for k in _COUNTERS:
+            _COUNTERS[k] = 0
     _dispatch.reset_dispatch_stats()
     runtime_guard.reset_global_counters()
 
 
 def clear() -> None:
     """Drop both caches (and counters)."""
-    _PATH_CACHE.clear()
-    _FUSED_CACHE.clear()
+    with _CACHE_LOCK:
+        _PATH_CACHE.clear()
+        _FUSED_CACHE.clear()
     reset_stats()
 
 
@@ -209,22 +221,25 @@ def contraction_path(expr: str, shapes: Tuple[Tuple[int, ...], ...]) -> list:
     """Flop-optimal contraction path for ``expr`` over ``shapes``, memoized
     on ``(expr, shapes)``."""
     key = (expr, shapes)
-    if _CONFIG["path_cache"]:
+    if not _CONFIG["path_cache"]:
+        counting.tick(_COUNTERS, "path_uncached")
+        return _search(expr, shapes)
+    with _CACHE_LOCK:
         hit = _PATH_CACHE.get(key)
         if hit is not None:
-            _COUNTERS["path_hits"] += 1
+            counting.tick(_COUNTERS, "path_hits")
             return hit
-        _COUNTERS["path_misses"] += 1
-    else:
-        _COUNTERS["path_uncached"] += 1
+        counting.tick(_COUNTERS, "path_misses")
+        path = _PATH_CACHE[key] = _search(expr, shapes)
+    return path
+
+
+def _search(expr: str, shapes: Tuple[Tuple[int, ...], ...]) -> list:
     inputs, output = _parse(expr)
     sizes = {}
     for sub, shape in zip(inputs, shapes):
         sizes.update(zip(sub, shape))
-    path = search_path(inputs, output, sizes)
-    if _CONFIG["path_cache"]:
-        _PATH_CACHE[key] = path
-    return path
+    return search_path(inputs, output, sizes)
 
 
 def execute_path(expr: str, path, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -270,9 +285,11 @@ def _path_entries_canonical(entries: list) -> str:
 def save_path_cache(path: str) -> int:
     """Write the in-memory path cache to ``path`` (atomic: a temporary
     file, then ``os.replace``).  Returns the number of entries written."""
+    with _CACHE_LOCK:
+        items = list(_PATH_CACHE.items())
     entries = sorted(
         [expr, [list(s) for s in shapes], [list(step) for step in plan]]
-        for (expr, shapes), plan in _PATH_CACHE.items())
+        for (expr, shapes), plan in items)
     payload = {
         "format": PATH_CACHE_FORMAT,
         "checksum": hashlib.sha256(
@@ -312,8 +329,9 @@ def load_path_cache(path: str) -> int:
         warnings.warn(f"ignoring unusable planner path cache {path!r} "
                       f"({e!r}): cold start", RuntimeWarning)
         return 0
-    _PATH_CACHE.update(staged)
-    _COUNTERS["path_preloaded"] += len(staged)
+    with _CACHE_LOCK:
+        _PATH_CACHE.update(staged)
+    counting.tick(_COUNTERS, "path_preloaded", len(staged))
     return len(staged)
 
 
@@ -355,13 +373,13 @@ def fused_fn(tag: str, signature: tuple, make):
     if not _CONFIG["fusion"]:
         return make()
     key = (tag,) + tuple(signature)
-    fn = _FUSED_CACHE.get(key)
-    if fn is None:
-        _COUNTERS["fused_misses"] += 1
-        fn = make()
-        _FUSED_CACHE[key] = fn
-    else:
-        _COUNTERS["fused_hits"] += 1
+    with _CACHE_LOCK:
+        fn = _FUSED_CACHE.get(key)
+        if fn is not None:
+            counting.tick(_COUNTERS, "fused_hits")
+            return fn
+        counting.tick(_COUNTERS, "fused_misses")
+        fn = _FUSED_CACHE[key] = make()
     return fn
 
 

@@ -9,7 +9,7 @@ Counterpart of ``repro.core.precision``.
   c128 -> c64; f32/bf16/c64 are fixed points), the solve runs in the
   demoted dtype, and the factors are promoted back with the scales folded
   into ``s``.  While the solve runs, the kernel sites multiply in bf16
-  (:func:`repro_torch.kernels.dispatch.set_kernel_compute`) with f32
+  (:func:`repro_torch.kernels.dispatch.kernel_compute_scope`) with f32
   accumulation: on the card that is the ``gram_complex`` and
   ``tall_apply_complex`` bf16 instantiations.  Off-kernel math runs in the
   demoted storage dtype, so a dense run measures the storage-demotion
@@ -98,7 +98,7 @@ class PrecisionWrapped:
     Callable with the option protocol ``(op, rank, key) -> (u, s, v)``:
     scales and demotes the implicit operator's tensors per the policy,
     points the kernel sites at the policy's compute dtype for the solve
-    (restored in ``finally``; the dispatch state keys the planner's fused
+    (in the calling thread alone; the dispatch state keys the planner's fused
     cache, so exact and mixed solves never share an entry), and promotes
     the factors back to the operand dtype.  The exact policy never builds
     this wrapper: :func:`wrap_svd` returns the inner option."""
@@ -134,11 +134,8 @@ class PrecisionWrapped:
             op = ImplicitOperator(tensors, list(op.subscripts), op.row, op.col)
         wide = {"wide_svd": True} if pol.demote and isinstance(
             self.inner, (DirectSVD, RandomizedSVD)) else {}
-        prev = dispatch.set_kernel_compute(pol.kernel_compute)
-        try:
+        with dispatch.kernel_compute_scope(pol.kernel_compute):
             u, s, v = self.inner(op, rank, key, **wide)
-        finally:
-            dispatch.set_kernel_compute(prev)
         if changed:
             u = u.to(orig_dtype)
             v = v.to(orig_dtype)

@@ -45,6 +45,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import counting
 from repro_torch.core import faults
 
 # ---------------------------------------------------------------------------
@@ -68,12 +69,14 @@ _COUNTERS: Dict[str, int] = {
 
 def global_counters() -> Dict[str, int]:
     """Process-global guard counters (a copy; planner.stats() merges them)."""
-    return dict(_COUNTERS)
+    with counting.LOCK:
+        return dict(_COUNTERS)
 
 
 def reset_global_counters() -> None:
-    for k in _COUNTERS:
-        _COUNTERS[k] = 0
+    with counting.LOCK:
+        for k in _COUNTERS:
+            _COUNTERS[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -121,7 +124,7 @@ class GuardReport:
         self.events.append(event)
 
     def tick(self, counter: str) -> None:
-        _COUNTERS[counter] += 1
+        counting.tick(_COUNTERS, counter)
         self.counters[counter] = self.counters.get(counter, 0) + 1
 
     @property

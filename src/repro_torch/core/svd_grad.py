@@ -28,6 +28,8 @@ import cmath
 
 import torch
 
+from repro_torch import counting
+
 #: Relative Lorentzian broadening of reciprocal spectral gaps.
 SVD_GRAD_RTOL = 1e-12
 
@@ -184,7 +186,7 @@ def _eigh_forward(a: torch.Tensor):
         if wide is None:
             raise
     w, v = torch.linalg.eigh(a.to(wide))
-    eigh_reg.widened += 1
+    counting.tick_attr(eigh_reg, "widened")
     return w.to(a.real.dtype), v.to(a.dtype)
 
 

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -53,6 +54,8 @@ _SIGNATURES = {
 # Shared memory one block may use on the H100 (bytes, dynamic).
 MAX_SMEM_BYTES = 232448
 _lib = None
+# one build and one load, whichever thread launches first
+_LIB_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -122,14 +125,18 @@ def build_log() -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; threads that
+    call at once wait for the one build)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for fn, argtypes in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = list(argtypes)
-            getattr(lib, fn).restype = ctypes.c_int
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _LIB_LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for fn, argtypes in _SIGNATURES.items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 
@@ -171,8 +178,11 @@ def launch(fn, device, *args) -> int:
     thread's current CUDA device during the call: a launch runs in the
     current device's context, so an operand on another card than the
     current one must switch it, and switch it back after.  With one card
-    there is nothing to switch and nothing is queried.  Returns ``fn``'s
-    CUDA error code."""
+    there is nothing to switch and nothing is queried.  The current
+    device and stream are the calling thread's own (PyTorch keeps the
+    current stream per thread), so a worker thread of
+    :mod:`repro_torch.core.spmd` launches on its own stream and card.
+    Returns ``fn``'s CUDA error code."""
     import torch
     if card_count() == 1:
         return fn(*args, torch._C._cuda_getCurrentRawStream(0))

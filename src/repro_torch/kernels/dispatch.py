@@ -38,14 +38,23 @@ the kernel runs and before the counter ticks, on a CPU tensor too.
 :func:`backend_signature` captures the state that changes what a cached
 callable computes (modes, per-site overrides, compute dtype, device type);
 the planner folds it into its fused-cache keys.
+
+The modes and the compute dtype are process-wide; :func:`forced_dense`
+(the runtime guard's dense rung) and :func:`kernel_compute_scope` (the
+precision policies' solves) change them for the calling thread alone, so
+the worker threads of :mod:`repro_torch.core.spmd` do not see each other's
+scoped changes.  Counters tick under :data:`repro_torch.counting.LOCK`.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from typing import Callable, Dict, Optional
 
 import torch
+
+from repro_torch import counting
 
 _MODES = ("auto", "kernel", "dense")
 
@@ -69,6 +78,9 @@ _SITES: Dict[str, KernelSite] = {}
 _COUNTERS: Dict[str, int] = {}
 _STATE = {"mode": "auto", "compute": None}
 _SITE_MODES: Dict[str, str] = {}   # per-site overrides
+# the calling thread's scoped changes: ``dense`` (forced_dense) and
+# ``compute`` (kernel_compute_scope; absent when no scope is open)
+_LOCAL = threading.local()
 
 
 def register_kernel(name: str, *, kernel: Callable, dense: Callable,
@@ -112,16 +124,25 @@ def grad_route(name: str, forced: bool, *args, **kwargs) -> bool:
             f"{name}: an operand requires grad, and the port's kernels have "
             f"no backward; set the kernel backend to 'auto' or 'dense' for a "
             f"differentiated call")
-    counter = f"dense_{name}_grad_calls"
-    _COUNTERS[counter] = _COUNTERS.get(counter, 0) + 1
+    counting.tick(_COUNTERS, f"dense_{name}_grad_calls")
     return True
+
+
+def _mode(name: Optional[str] = None) -> str:
+    """The effective mode of site ``name`` (or the global one) in the
+    calling thread."""
+    if getattr(_LOCAL, "dense", False):
+        return "dense"
+    if name is not None:
+        return _SITE_MODES.get(name, _STATE["mode"])
+    return _STATE["mode"]
 
 
 def dispatch(name: str, *args, **kwargs):
     """Run site ``name`` on ``args``, kernel- or dense-routed.  Unknown
     sites raise KeyError."""
     site = _SITES[name]
-    mode = _SITE_MODES.get(name, _STATE["mode"])
+    mode = _mode(name)
     use_kernel = False
     if mode != "dense" and site.supported(*args, **kwargs):
         if grad_route(name, mode == "kernel", *args, **kwargs):
@@ -133,9 +154,9 @@ def dispatch(name: str, *args, **kwargs):
         from repro_torch.core import faults
         if faults.should_fire(f"kernel.{name}") is not None:
             raise faults.InjectedFault(f"kernel.{name}")
-        _COUNTERS[f"kernel_{name}_calls"] += 1
+        counting.tick(_COUNTERS, f"kernel_{name}_calls")
         return site.kernel_fn(*args, **kwargs)
-    _COUNTERS[f"dense_{name}_calls"] += 1
+    counting.tick(_COUNTERS, f"dense_{name}_calls")
     return site.dense_fn(*args, **kwargs)
 
 
@@ -144,7 +165,7 @@ def routes_to_kernel(name: str, *args, **kwargs) -> bool:
     arguments (a forced kernel that would raise for a differentiated call
     counts as not), without counting, consulting faults or raising."""
     site = _SITES[name]
-    mode = _SITE_MODES.get(name, _STATE["mode"])
+    mode = _mode(name)
     if (mode == "dense" or not site.supported(*args, **kwargs)
             or _recorded(args, kwargs)):
         return False
@@ -170,26 +191,32 @@ def set_kernel_backend(mode: str, site: Optional[str] = None) -> str:
 
 
 def kernel_backend(site: Optional[str] = None) -> str:
-    """Effective mode, global or for one site."""
-    if site is not None:
-        return _SITE_MODES.get(site, _STATE["mode"])
-    return _STATE["mode"]
+    """Effective mode in the calling thread, global or for one site."""
+    return _mode(site)
 
 
 @contextlib.contextmanager
 def forced_dense():
-    """Force every site dense for the duration; restores the global mode
-    and the per-site overrides afterwards."""
-    prev_mode = _STATE["mode"]
-    prev_sites = dict(_SITE_MODES)
-    _STATE["mode"] = "dense"
-    _SITE_MODES.clear()
+    """Force every site dense in the calling thread for the duration;
+    the process-wide mode and per-site overrides stay as they are."""
+    prev = getattr(_LOCAL, "dense", False)
+    _LOCAL.dense = True
     try:
         yield
     finally:
-        _STATE["mode"] = prev_mode
-        _SITE_MODES.clear()
-        _SITE_MODES.update(prev_sites)
+        _LOCAL.dense = prev
+
+
+def _compute_name(dtype) -> Optional[str]:
+    """``'bfloat16'`` or None for a kernel multiplicand dtype; raises on
+    any other."""
+    if dtype is None:
+        return None
+    name = str(dtype).replace("torch.", "")
+    if name != "bfloat16":
+        raise ValueError(f"unsupported kernel compute dtype {dtype!r}: "
+                         "expected 'bfloat16' or None")
+    return name
 
 
 def set_kernel_compute(dtype) -> Optional[str]:
@@ -197,37 +224,55 @@ def set_kernel_compute(dtype) -> Optional[str]:
     ``torch.bfloat16``; ``None`` for the operand dtype).  Accumulation is
     always f32.  Returns the previous value."""
     prev = _STATE["compute"]
-    if dtype is None:
-        _STATE["compute"] = None
-    else:
-        name = str(dtype).replace("torch.", "")
-        if name != "bfloat16":
-            raise ValueError(f"unsupported kernel compute dtype {dtype!r}: "
-                             "expected 'bfloat16' or None")
-        _STATE["compute"] = name
+    _STATE["compute"] = _compute_name(dtype)
     return prev
 
 
+_NO_SCOPE = object()
+
+
+@contextlib.contextmanager
+def kernel_compute_scope(dtype):
+    """The kernel multiplicand dtype ``dtype`` (as for
+    :func:`set_kernel_compute`, ``None`` for the operand dtype) in the
+    calling thread for the duration."""
+    name = _compute_name(dtype)
+    prev = getattr(_LOCAL, "compute", _NO_SCOPE)
+    _LOCAL.compute = name
+    try:
+        yield
+    finally:
+        if prev is _NO_SCOPE:
+            del _LOCAL.compute
+        else:
+            _LOCAL.compute = prev
+
+
 def kernel_compute() -> Optional[str]:
-    return _STATE["compute"]
+    """The kernel multiplicand dtype in the calling thread."""
+    scoped = getattr(_LOCAL, "compute", _NO_SCOPE)
+    return _STATE["compute"] if scoped is _NO_SCOPE else scoped
 
 
 def backend_signature() -> tuple:
     """Every piece of dispatch state that changes what a cached callable
     computes, plus the device type kernels would launch on."""
-    return (_STATE["mode"],
-            tuple(sorted(_SITE_MODES.items())),
-            _STATE["compute"],
+    dense = getattr(_LOCAL, "dense", False)
+    return (_mode(),
+            () if dense else tuple(sorted(_SITE_MODES.items())),
+            kernel_compute(),
             "cuda" if torch.cuda.is_available() else "cpu")
 
 
 def dispatch_stats() -> Dict[str, int]:
-    return dict(_COUNTERS)
+    with counting.LOCK:
+        return dict(_COUNTERS)
 
 
 def reset_dispatch_stats() -> None:
-    for k in _COUNTERS:
-        _COUNTERS[k] = 0
+    with counting.LOCK:
+        for k in _COUNTERS:
+            _COUNTERS[k] = 0
 
 
 # ---------------------------------------------------------------------------

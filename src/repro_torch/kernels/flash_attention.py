@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import counting
 from repro_torch.kernels import build
 
 _NEG_INF = -1e30
@@ -171,7 +172,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, s, sk, d,
         int(causal), int(q.dtype == torch.bfloat16), *strides)
     build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    counting.tick_attr(flash_attention)
     return out
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import counting
 from repro_torch.kernels import build
 
 
@@ -65,7 +66,7 @@ def gram(a: torch.Tensor, *, compute=None) -> torch.Tensor:
         return gram_plain(a, compute)
     x, _ = build.f32_matrix(a, "gram")
     g = _launch("repro_gram_f32", x, torch.float32, 1, compute, "gram")
-    gram.launches += 1
+    counting.tick_attr(gram)
     return g.to(a.dtype)
 
 
@@ -92,7 +93,7 @@ def gram_complex(a: torch.Tensor, *, compute=None) -> torch.Tensor:
     a = a.resolve_conj()
     g = _launch("repro_gram_c64", a, torch.complex64, 2, compute,
                 "gram_complex")
-    gram_complex.launches += 1
+    counting.tick_attr(gram_complex)
     return g
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import counting
 from repro_torch.kernels import build
 
 
@@ -89,7 +90,7 @@ def tall_apply(a: torch.Tensor, b: torch.Tensor, *,
         raise TypeError(f"tall_apply: the kernel takes float32 or bfloat16, "
                         f"got {a.dtype}, {b.dtype}")
     c = _launch("repro_tall_apply_f32", x, y, compute)
-    tall_apply.launches += 1
+    counting.tick_attr(tall_apply)
     return c.to(torch.promote_types(a.dtype, b.dtype))
 
 
@@ -111,7 +112,7 @@ def tall_apply_complex(a: torch.Tensor, b: torch.Tensor, *,
     conj_a = a.is_conj()
     c = _launch("repro_tall_apply_c64", a, b, compute,
                 int(conj_a != b.is_conj()), int(conj_a))
-    tall_apply_complex.launches += 1
+    counting.tick_attr(tall_apply_complex)
     return c
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import counting
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import split_bf16x3
 
@@ -203,7 +204,7 @@ def ssd_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     launch = (build.library().repro_ssd_scan_bf16 if x.dtype == torch.bfloat16
               else build.library().repro_ssd_scan)
     build.check(build.launch(launch, x.device, *args), "ssd_scan")
-    ssd_scan.launches += 1
+    counting.tick_attr(ssd_scan)
     return (y, state) if return_state else y
 
 

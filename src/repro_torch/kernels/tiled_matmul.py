@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import counting
 from repro_torch.kernels import build
 
 
@@ -49,7 +50,7 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *,
         c.data_ptr(), work.data_ptr(), m, k, n, int(trans), sms,
         int(compute is not None))
     build.check(err, "tiled_matmul")
-    tiled_matmul.launches += 1
+    counting.tick_attr(tiled_matmul)
     return c.to(torch.promote_types(a.dtype, b.dtype))
 
 

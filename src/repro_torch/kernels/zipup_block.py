@@ -30,6 +30,7 @@ from array import array
 
 import torch
 
+from repro_torch import counting
 from repro_torch.kernels import build, dispatch
 
 # the dtypes the kernels take (f64 and c128 never reach them: dispatch's
@@ -146,7 +147,7 @@ def _first_onelayer_kernel(s0, o0):
         (xs[0], 0, 0, xs[2], 0, 0, ys[1], ys[2], 0, ys[3],
          f, 1, 1, xs[1], 0, 0, ys[0], 0, 0),
         0 if compute is None else _BF16)
-    _first_onelayer_kernel.launches += launched
+    counting.tick_attr(_first_onelayer_kernel, n=launched)
     return out if out_dtype == work else out.to(out_dtype)
 
 
@@ -217,7 +218,7 @@ def _first_twolayer_kernel(s0, tb0, tk0):
          p, F, 0, xs[2], ys[0], 0, zs[0], zs[1],
          f, xs[1], ys[1]),
         flags)
-    _first_twolayer_kernel.launches += launched
+    counting.tick_attr(_first_twolayer_kernel, n=launched)
     return out if out_dtype == work else out.to(out_dtype)
 
 
@@ -266,7 +267,7 @@ def _pair_merge_kernel(tb, tk):
         (xs[2], 0, xs[3], 0, xs[4], 0, 0, ys[2], 0, ys[3], 0, ys[4],
          p, u, U, xs[0], xs[1], 0, ys[0], 0, ys[1]),
         0 if compute is None else _BF16)
-    _pair_merge_kernel.launches += launched
+    counting.tick_attr(_pair_merge_kernel, n=launched)
     return out if out_dtype == work else out.to(out_dtype)
 
 

@@ -767,3 +767,47 @@ def test_peps_kernel_launches_on_a_device_that_is_not_current(last_cuda,
         assert got.device == last_cuda
         assert _crel(got, plain()) <= F32_TOL
         assert torch.equal(launch(), got)
+
+
+@pytest.mark.cuda
+def test_peps_kernels_from_two_threads_on_two_streams(cuda):
+    """Two threads, each with its own stream on one card (as the workers of
+    ``repro_torch.core.spmd`` run), launch ``gram_complex``,
+    ``tall_apply_complex`` and ``zipup_chain`` at once, many times: every
+    result equals its plain version and the same call made from one
+    thread bit for bit, and every launch is counted."""
+    import threading
+
+    calls = {k: _peps_kernel_call(k, cuda)
+             for k in ("gram_complex", "tall_apply_complex", "zipup_chain")}
+    single = {k: launch() for k, (launch, _, _) in calls.items()}
+    torch.cuda.synchronize()
+    for k, (_, plain, _) in calls.items():
+        assert _crel(single[k], plain()) <= F32_TOL, k
+    before = {k: launches() for k, (_, _, launches) in calls.items()}
+    reps = 20
+    results, errors = {}, []
+    barrier = threading.Barrier(2)
+
+    def work(t):
+        try:
+            stream = torch.cuda.Stream(cuda)
+            with torch.cuda.device(cuda), torch.cuda.stream(stream):
+                barrier.wait(timeout=60)
+                out = {k: [launch() for _ in range(reps)]
+                       for k, (launch, _, _) in calls.items()}
+                stream.synchronize()
+            results[t] = out
+        except BaseException as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads) and not errors, errors
+    for k, (_, _, launches) in calls.items():
+        assert launches() == before[k] + 2 * reps, k
+        assert all(torch.equal(got, single[k])
+                   for t in range(2) for got in results[t][k]), k

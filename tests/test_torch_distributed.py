@@ -17,8 +17,10 @@ already part at 1e-5 to 1e-3, sharded or not.  Shards wrap round-robin
 onto the one CPU device, so every layout runs here.  The layout rules, the
 ``for_mesh`` batch column (on ``torch.device`` descriptors, no
 allocation), planner replay after a single-device warm-up, the halo byte
-count, the row-local variational engine and the refusals (``"spmd"``,
-batched amplitudes, prefix environments, serving) are held too.
+count, the row-local variational engine, the three wavefront modes
+(``"spmd"`` and ``"auto"`` equal to ``"host"``; ``tests/test_torch_spmd.py``
+holds the superstep itself) and the refusals (batched amplitudes, prefix
+environments, serving) are held too.
 """
 import numpy as np
 import pytest
@@ -41,6 +43,7 @@ from repro_torch.core import bmps as TB  # noqa: E402
 from repro_torch.core import distributed as TD  # noqa: E402
 from repro_torch.core import peps as TP  # noqa: E402
 from repro_torch.core import planner  # noqa: E402
+from repro_torch.core import spmd  # noqa: E402
 from repro_torch.core.environments import onelayer_prefix_environment, \
     top_environments  # noqa: E402
 from repro_torch.core.expectation import expectation  # noqa: E402
@@ -342,17 +345,20 @@ def test_variational_engine_runs_row_local():
 
 
 def test_wavefront_modes():
-    with pytest.raises(NotImplementedError, match="PEPS item 9"):
-        TD.DistributedBMPS(8, wavefront="spmd")
     with pytest.raises(ValueError, match="wavefront"):
         TD.DistributedBMPS(8, wavefront="pipelined")
     with pytest.raises(ValueError, match="supports_blocks=False"):
         TD.DistributedBMPS(8, wavefront="auto", engine="variational")
-    state = _port_state(2, 3, 2)
+    with pytest.raises(ValueError, match="supports_blocks=False"):
+        TD.DistributedBMPS(8, wavefront="spmd", engine="variational")
+    # rows 1 and 2 are chi-saturated: "spmd" runs them in the superstep
+    state = _port_state(4, 6, 2)
+    spmd.reset_stats()
     vals = [TB.norm_squared(state, TD.DistributedBMPS(
         4, n_shards=3, wavefront=w, devices=(CPU,)), TorchKey(1))
-        for w in ("host", "auto")]
-    assert torch.equal(vals[0], vals[1])
+        for w in ("host", "auto", "spmd")]
+    assert spmd.stats()["rows_spmd"] == 2
+    assert torch.equal(vals[0], vals[1]) and torch.equal(vals[0], vals[2])
 
 
 def test_single_device_entry_points_reject_the_option(s23):
