@@ -99,12 +99,24 @@ within twice the loss's own bf16 floor, and one profiled step with plain
 attention's share of its device time; one f32 step of every architecture's
 smoke config on the card against the same step on the CPU; and the
 launcher killed with ``os._exit(42)`` and resumed in subprocesses, bit for
-bit.  Every profiled trace must be whole (``trace_complete``: each kernel
-launch the runtime recorded has its device kernel; pad launches at both
-ends absorb the records the profiler drops at a trace's edges), or is
-taken again, and after three incomplete traces the run fails.  ``python3 chip_smoke.py train`` (or ``kernels``, ``wrappers``,
-``lm_kernels``, ``ite``, ``vqe``, ``distributed``, ``spmd``) runs those
-phases alone
+bit.  Last, sharded training on ``torch.distributed`` (``train_mesh``
+phase): the Qwen3-4B step on a (1, 1) ``DeviceMesh`` of a world-size-1
+NCCL group against the one-device step (leaves bit for bit expected, the
+first differing one printed), each step's time and peak, and
+smollm-360m's int8-compressed step on (1, 1, 1) against the plain one;
+with four cards visible it starts one rank per card and runs Qwen3-4B on
+(data 2, model 2) against the one-card loss (per-leaf update norms,
+s/step, tokens/s, peak per card, NCCL's share of a profiled step), the
+compressed step on (pod 2, data 1, model 2) and Qwen3-30B-A3B's first 4
+layers on (data 1, model 4).  Every profiled trace must be whole
+(``trace_complete``: each kernel launch the runtime recorded has its
+device kernel; pad launches at both ends absorb the records the profiler
+drops at a trace's edges), or is
+taken again, and after three incomplete traces the run fails (the
+four-card profile of ``train_mesh`` is one plain trace a rank: a retake
+on one rank alone would stall the others).  ``python3 chip_smoke.py
+train`` (or ``kernels``, ``wrappers``, ``lm_kernels``, ``ite``, ``vqe``,
+``distributed``, ``spmd``, ``train_mesh``) runs those phases alone
 and prints no result line.  Each phase
 prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
@@ -452,6 +464,50 @@ TRAIN_CHAOS_KILL = 12
 # masks), forward, recompute and backward.
 PLAIN_ATTENTION_OPS = ("aten::bmm", "aten::_softmax",
                        "aten::_softmax_backward_data", "aten::masked_fill")
+# Sharded LM training (train_mesh phase).  One card: TRAIN_ARCH's train
+# step on a (1, 1) DeviceMesh of a world-size-1 NCCL group against the
+# mesh=None step (every leaf bit for bit), and MESH_COMPRESSED_ARCH's
+# compressed step on (1, 1, 1) against the plain one.  Four cards, one
+# rank per card: TRAIN_ARCH on (data 2, model 2) at the same global batch,
+# its loss within TOL_MESH_LOSS (relative; a regression bound, the gap
+# printed) and its gradients within TOL_MESH_GRAD of the one-card step's;
+# MESH_COMPRESSED_ARCH's compressed step on (pod 2, data 1, model 2) under
+# the reference's bounds (tests/test_extensions.py); MESH_MOE_ARCH at its
+# published widths with MESH_MOE_LAYERS layers on (data 1, model 4), where
+# routes and drops equal the one-card run's, its loss within TOL_MESH_MOE
+# of it.  Every part runs and prints before the phase fails on a check.
+MESH_COMPRESSED_ARCH = "smollm-360m"
+MESH_MOE_ARCH = "qwen3-moe-30b-a3b"
+MESH_MOE_LAYERS = 4
+MESH_CARDS = 4
+MESH_TIMED_STEPS = 2
+TOL_MESH_LOSS = 1e-2
+TOL_MESH_MOE = 1e-3
+TOL_COMPRESSED_LOSS = 1e-2
+TOL_COMPRESSED_PARAM = 5e-3
+# Each leaf's gradient is read back from the new first moment (zero
+# moments: m = (1 - b1) g, clipped), every MESH_GRAD_STRIDE-th element of
+# the flattened leaf, and held relative (Frobenius) to the one-card
+# step's: TOL_MESH_GRAD on (2, 2) (bf16 gradients summed in another
+# order), TOL_COMPRESSED_GRAD for the compressed steps against the plain
+# step on the same mesh (int8 quantization).  Planted faults must exceed
+# them: the gradient of data rank 0's tokens alone on (2, 2) (what a
+# skipped data-axis sum leaves), the pod-averaged gradients zeroed on
+# (1, 1, 1) and the pod sum skipped on (2, 1, 2).
+# Measured (H100, four cards): (2, 2) at most 0.279 (k_norm; the large
+# leaves 0.05 to 0.06), the fault 0.65 to 3.4 on every leaf; compressed
+# at most 0.227 on (1, 1, 1) and 0.192 on (2, 1, 2), the faults 1.0 and
+# 2.7.  The update itself is not held on the card: lr is about one bf16
+# spacing of the weights, so a compressed step's update sits up to 0.99
+# of its norm off the plain one's, as far as a dropped update (the f32
+# CPU test, tests/test_torch_lm_compressed.py, holds it).
+MESH_GRAD_STRIDE = 997
+TOL_MESH_GRAD = 0.5
+TOL_COMPRESSED_GRAD = 0.5
+# Per leaf, the norm of the (2, 2) step's update against the one-card
+# step's: measured 2.43e-4 (embed), the fault 0.255 (embed: rows of
+# tokens absent from its half of the batch get no gradient step).
+TOL_MESH_UPDATE_NORM = 1e-2
 
 
 class CheckFailed(Exception):
@@ -4651,6 +4707,566 @@ def phase_train(torch, np):
     return launches
 
 
+def _join_single_rank(torch):
+    """Join a world-size-1 NCCL group on cuda:0 (a free localhost port)."""
+    from repro_torch.launch.mesh import _free_port, init_distributed
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    return init_distributed("cuda")
+
+
+def _leave_group():
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR",
+              "MASTER_PORT"):
+        os.environ.pop(k, None)
+
+
+def _timed_step(torch, step):
+    """(step's result, seconds, peak bytes) of one train step."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = step()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def _leaf_norms(torch, new, old):
+    """{leaf: [|new - old|, |new|]} (f32 norms, whole on every rank for a
+    DTensor) of two parameter trees."""
+    from repro_torch.models.common import tree_leaves
+
+    def whole(x):
+        return float(x.full_tensor() if hasattr(x, "full_tensor") else x)
+    out = {}
+    for (path, a), (_, b) in zip(tree_leaves(new), tree_leaves(old)):
+        a32 = a.float()
+        out["/".join(path)] = [
+            whole((a32 - b.float()).square().sum()) ** 0.5,
+            whole(a32.square().sum()) ** 0.5]
+    return out
+
+
+def _grad_samples(torch, mu):
+    """{leaf: every MESH_GRAD_STRIDE-th element of the flattened first
+    moment, whole, on the CPU in f32} of an AdamW state's ``mu``."""
+    from repro_torch.models.common import tree_leaves
+    out = {}
+    for path, m in tree_leaves(mu):
+        whole = m.full_tensor() if hasattr(m, "full_tensor") else m
+        out["/".join(path)] = whole.reshape(-1)[::MESH_GRAD_STRIDE].float(
+            ).cpu()
+        del whole
+    return out
+
+
+def _grad_gaps(torch, got, want):
+    """{leaf: relative Frobenius gap} of two :func:`_grad_samples`."""
+    return {k: float((got[k] - w).norm() / max(float(w.norm()), 1e-30))
+            for k, w in want.items()}
+
+
+@contextlib.contextmanager
+def planted_psum(fault):
+    """``train_step_compressed`` with a planted fault that the gradient
+    check must refuse: "zeroed" (the pod-averaged gradients zeroed) or
+    "no_pod_sum" (the pod all-reduce skipped: each pod keeps its own
+    gradient)."""
+    from repro_torch.optim import compression
+    real = compression.psum_compressed
+
+    def zeroed(g, err, group=None):
+        mean, new_err = real(g, err, group)
+        return mean * 0, new_err
+
+    compression.psum_compressed = {
+        "zeroed": zeroed, "no_pod_sum": lambda g, err, group=None: (g, err)
+    }[fault]
+    try:
+        yield
+    finally:
+        compression.psum_compressed = real
+
+
+def _batch_of(torch, cfg, batch):
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import step_batch
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=batch, seed=SEED))
+    return step_batch(cfg, data, 0, torch.device("cuda"))
+
+
+def _one_card_steps(torch, batch):
+    """TRAIN_ARCH's mesh=None step and the same step on a (1, 1)
+    DeviceMesh, each twice (the second timed as the steady step), from the
+    same bf16 weights, zero moments and batch; the first steps' new
+    parameters compared leaf by leaf."""
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build
+    from repro_torch.optim.adamw import OptConfig, adamw_init
+
+    cfg = get(TRAIN_ARCH)
+    opt_cfg = OptConfig(lr=TRAIN_LR)
+    plain = build(cfg, opt_cfg)
+    sharded = build(cfg, opt_cfg, mesh=make_device_mesh((1, 1)))
+    tokens = _batch_of(torch, cfg, batch)
+    res = {}
+
+    params = plain.init(SEED)
+    opt = adamw_init(params)
+    (params, opt, m), s1, peak = _timed_step(
+        torch, lambda: plain.train_step(params, opt, tokens, donate=True))
+    res["plain"] = {"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"]), "first_s": s1,
+                    "max_memory_allocated": peak}
+    ref = {path: t.cpu() for path, t in tree_leaves(params)}
+    res["grad_samples"] = _grad_samples(torch, opt["mu"])
+    p0 = plain.init(SEED)
+    res["leaves"] = _leaf_norms(torch, params, p0)
+    del p0
+    _, s2, _ = _timed_step(
+        torch, lambda: plain.train_step(params, opt, tokens, donate=True))
+    res["plain"]["s_per_step"] = s2
+    del params, opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = sharded.shard(sharded.init(SEED))
+    opt = adamw_init(params)
+    dtokens = sharded.shard_batch(tokens)
+    (params, opt, m), s1, peak = _timed_step(
+        torch, lambda: sharded.train_step(params, opt, dtokens, donate=True))
+    res["mesh_1x1"] = {"loss": float(m["loss"]),
+                       "grad_norm": float(m["grad_norm"]), "first_s": s1,
+                       "max_memory_allocated": peak}
+    first, same = None, 0
+    for path, t in tree_leaves(params):
+        want = ref[path].to(t.device)
+        got = t.to_local()
+        if torch.equal(got, want):
+            same += 1
+        elif first is None:
+            first = {"leaf": "/".join(path), "max_abs_gap": float(
+                (got.float() - want.float()).abs().max()),
+                "rel_gap": rel_gap(torch, got.float(), want.float())}
+    res["leaves_bitwise"] = [same, len(ref)]
+    res["first_differing_leaf"] = first
+    del ref
+    _, s2, _ = _timed_step(
+        torch, lambda: sharded.train_step(params, opt, dtokens, donate=True))
+    res["mesh_1x1"]["s_per_step"] = s2
+    del params, opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _compressed_vs_plain(torch, mesh_shape, fault):
+    """MESH_COMPRESSED_ARCH at its published widths: the compressed train
+    step and the plain one on a (pod, data, model) mesh of ``mesh_shape``
+    from the same weights, zero moments and TRAIN_BATCH x TRAIN_SEQ batch,
+    then the compressed step again with ``fault`` planted
+    (:func:`planted_psum`): losses, per-leaf max parameter gap and its
+    bound, per-leaf gradient gaps (:func:`_grad_samples`) of both
+    compressed steps, per-leaf update gaps, payload bytes."""
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build
+    from repro_torch.optim.adamw import OptConfig, adamw_init
+    from repro_torch.optim.compression import init_error_state
+
+    cfg = get(MESH_COMPRESSED_ARCH)
+    bundle = build(cfg, OptConfig(lr=TRAIN_LR),
+                   mesh=make_device_mesh(mesh_shape))
+    params = bundle.shard(bundle.init(SEED))
+    opt = adamw_init(params)
+    tokens = bundle.shard_batch(_batch_of(torch, cfg, TRAIN_BATCH))
+    (cnew, copt, err, cm), c_s, _ = _timed_step(
+        torch, lambda: bundle.train_step_compressed(
+            params, opt, init_error_state(params), tokens))
+    cgrad = _grad_samples(torch, copt["mu"])
+    del copt, err
+    (new, nopt, m), p_s, _ = _timed_step(
+        torch, lambda: bundle.train_step(params, opt, tokens))
+    grad = _grad_samples(torch, nopt["mu"])
+    del nopt
+    with planted_psum(fault):
+        fnew, fopt, _, _ = bundle.train_step_compressed(
+            params, opt, init_error_state(params), tokens)
+    fgrad = _grad_samples(torch, fopt["mu"])
+    del fopt
+    gap, quantum_bound, n, update_gaps, fault_update_gaps = 0.0, 0.0, 0, {}, {}
+    for (path, a), (_, b), (_, f), (_, p) in zip(
+            tree_leaves(cnew), tree_leaves(new), tree_leaves(fnew),
+            tree_leaves(params)):
+        a, b = a.full_tensor().float(), b.full_tensor().float()
+        f, p = f.full_tensor().float(), p.full_tensor().float()
+        gap = max(gap, float((a - b).abs().max()))
+        # from zero moments AdamW's step is g / (|g| + eps): quantization
+        # moves it by at most 1 (a gradient under half a quantum rounds
+        # to 0), so an element by lr, plus one bf16 spacing of the leaf
+        quantum_bound = max(quantum_bound,
+                            TRAIN_LR + 2.0 ** -7 * float(b.abs().max()))
+        n += a.numel()
+        plain_update = max(float((b - p).norm()), 1e-30)
+        update_gaps["/".join(path)] = float((a - b).norm()) / plain_update
+        fault_update_gaps["/".join(path)] = float((f - b).norm()
+                                                  ) / plain_update
+    grad_gaps = _grad_gaps(torch, cgrad, grad)
+    fault_gaps = _grad_gaps(torch, fgrad, grad)
+    return {"mesh": list(mesh_shape), "arch": MESH_COMPRESSED_ARCH,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "loss_compressed": float(cm["loss"]), "loss_plain": float(
+                m["loss"]), "max_param_gap": gap,
+            "param_gap_bound": quantum_bound,
+            "grad_rel_gaps": grad_gaps,
+            "max_grad_rel_gap": max(grad_gaps.values()),
+            "update_rel_gaps": update_gaps,
+            "max_update_rel_gap": max(update_gaps.values()),
+            "planted_fault": fault,
+            "fault_max_grad_rel_gap": max(fault_gaps.values()),
+            "fault_max_update_rel_gap": max(fault_update_gaps.values()),
+            "int8_payload_bytes": n, "f32_payload_bytes": 4 * n,
+            "compressed_s": c_s, "plain_s": p_s}
+
+
+def _hold_compressed(failures, comp, param_tol):
+    """The compressed step's checks, appended to ``failures``: loss and
+    parameters within their bounds, each leaf's gradient within
+    TOL_COMPRESSED_GRAD of the plain step's, and the planted fault's
+    gradient beyond it."""
+    where = f"train_mesh: compressed step on {tuple(comp['mesh'])}"
+    hold(failures, comp["loss_rel_gap"] <= TOL_COMPRESSED_LOSS
+         and comp["max_param_gap"] <= param_tol,
+         f"{where}: loss gap {comp['loss_rel_gap']}, parameter gap "
+         f"{comp['max_param_gap']} (bound {param_tol})")
+    hold(failures, comp["max_grad_rel_gap"] <= TOL_COMPRESSED_GRAD,
+         f"{where}: gradient gap {comp['max_grad_rel_gap']}")
+    hold(failures, comp["fault_max_grad_rel_gap"] > TOL_COMPRESSED_GRAD,
+         f"{where}: the planted fault {comp['planted_fault']} passed the "
+         f"gradient check ({comp['fault_max_grad_rel_gap']})")
+
+
+def hold(failures, ok: bool, what: str) -> None:
+    """A check of a phase whose parts all run and print before it fails:
+    ``what`` appended to ``failures`` unless ``ok``."""
+    if not ok:
+        failures.append(what)
+
+
+def mesh_one_card(torch, np, failures):
+    """The train_mesh phase on card 0 over a world-size-1 NCCL group, its
+    checks appended to ``failures``; returns what the four-card part
+    compares with."""
+    out = {"phase": "train_mesh", "part": "one_card", "arch": TRAIN_ARCH,
+           "mesh": [1, 1], "axes": ["data", "model"], "backend": "nccl",
+           "world_size": 1, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+           "reduced": {}, "nvidia_smi": nvidia_smi_line()}
+    _join_single_rank(torch)
+    batch, res = TRAIN_BATCH, None
+    try:
+        res = _one_card_steps(torch, batch)
+    except torch.cuda.OutOfMemoryError as e:
+        out["batch_oom"] = str(e)[:300]
+    if res is None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        batch = TRAIN_BATCH_CUT
+        out["reduced"]["batch"] = [TRAIN_BATCH, batch]
+        res = _one_card_steps(torch, batch)
+    leaves, grads = res.pop("leaves"), res.pop("grad_samples")
+    out.update(batch=batch, tokens_per_step=batch * TRAIN_SEQ, **res)
+    out["loss_rel_gap"] = abs(out["mesh_1x1"]["loss"] - out["plain"]["loss"]
+                              ) / abs(out["plain"]["loss"])
+    emit(out)
+    same, total = out["leaves_bitwise"]
+    hold(failures, same == total and math.isfinite(out["mesh_1x1"]["loss"])
+         and out["loss_rel_gap"] <= TOL_MESH_LOSS,
+         f"train_mesh: the (1, 1) DTensor step against the mesh=None "
+         f"step: {same} of {total} leaves bit for bit (first differing: "
+         f"{out['first_differing_leaf']}), loss gap {out['loss_rel_gap']}")
+
+    comp = _compressed_vs_plain(torch, (1, 1, 1), "zeroed")
+    comp.update(phase="train_mesh", part="compressed_one_card",
+                nvidia_smi=out["nvidia_smi"])
+    comp["loss_rel_gap"] = abs(comp["loss_compressed"] - comp["loss_plain"]
+                               ) / max(1.0, abs(comp["loss_plain"]))
+    emit(comp)
+    _hold_compressed(failures, comp, comp["param_gap_bound"])
+    _leave_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"batch": batch, "loss": out["plain"]["loss"], "leaves": leaves,
+            "grads": grads, "s_per_step": out["plain"]["s_per_step"],
+            "max_memory_allocated": out["plain"]["max_memory_allocated"]}
+
+
+def _moe_cut():
+    import dataclasses
+    from repro_torch.configs import get
+    return dataclasses.replace(get(MESH_MOE_ARCH), n_layers=MESH_MOE_LAYERS)
+
+
+def _moe_step(torch, bundle, params):
+    """One train step of the cut MoE model on TRAIN_BATCH x TRAIN_SEQ
+    tokens: (loss, dropped share of the forward's assignments)."""
+    from repro_torch.optim.adamw import adamw_init
+    opt = adamw_init(params)
+    tokens = _batch_of(torch, bundle.cfg, TRAIN_BATCH)
+    if bundle.mesh is not None:
+        tokens = bundle.shard_batch(tokens)
+    routes = []
+    with moe_routes(record=routes):
+        _, _, m = bundle.train_step(params, opt, tokens, donate=True)
+    forward = routes[:MESH_MOE_LAYERS]
+    kept = sum(int(r.keep.sum()) for r in forward)
+    total = sum(r.keep.numel() for r in forward)
+    return float(m["loss"]), 1.0 - kept / total
+
+
+# CUDA runtime calls in which the host waits for the device
+HOST_WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                   "cudaEventSynchronize")
+
+
+def _profiled_step(torch, step):
+    """One step under torch.profiler (CPU and CUDA activity) on this rank:
+    the device time of NCCL kernels over that of every kernel, the step's
+    wall time, the host's time inside the train step call (its dispatch;
+    the rest of the wall is the final synchronize) and inside the CUDA
+    calls that wait for the device."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        dispatch = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    nccl = total = wait = 0.0
+    for evt in prof.key_averages():
+        if evt.key in HOST_WAIT_CALLS:
+            wait += evt.self_cpu_time_total
+        us = getattr(evt, "device_time_total", None)
+        us = evt.cuda_time_total if us is None else us
+        if not us or evt.device_type.name != "CUDA":
+            continue
+        total += us
+        if "nccl" in evt.key.lower():
+            nccl += us
+    return {"nccl_device_ms": nccl / 1e3, "device_ms": total / 1e3,
+            "nccl_share": nccl / total if total else float("nan"),
+            "wall_ms": wall * 1e3, "dispatch_ms": dispatch * 1e3,
+            "host_wait_ms": wait / 1e3,
+            "other_kernels_ms": (total - nccl) / 1e3}
+
+
+def _hold_four_cards(failures, line):
+    """The (2, 2) step's checks against the one-card step, appended to
+    ``failures``: the loss, each leaf's gradient and update norm within
+    their bounds, and the planted fault beyond both."""
+    hold(failures, math.isfinite(line["loss"])
+         and line["loss_rel_gap"] <= TOL_MESH_LOSS,
+         f"train_mesh: 2x2 loss {line['loss']} vs one card "
+         f"{line['loss_one_card']}")
+    for key, tol in (("grad_rel_gap", TOL_MESH_GRAD),
+                     ("update_norm_rel_gap", TOL_MESH_UPDATE_NORM)):
+        hold(failures, line[f"max_{key}"] <= tol,
+             f"train_mesh: 2x2 {key} {line[f'max_{key}']} (bound {tol})")
+        hold(failures, line[f"fault_max_{key}"] > tol,
+             f"train_mesh: the 2x2 planted fault passed the {key} check "
+             f"({line[f'fault_max_{key}']}, bound {tol})")
+
+
+def _mesh_rank(info):
+    """One rank of the four-card part (spawned, one per card).  Every part
+    runs and rank 0 prints its line; the rank fails at the end if a check
+    failed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import init_distributed, make_device_mesh
+    from repro_torch.models.model import build
+    from repro_torch.optim.adamw import OptConfig, adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed("cuda")
+    lead = dist.get_rank() == 0
+    smi = nvidia_smi_line() if lead else None
+    failures = []
+
+    def peaks():
+        got = [None] * dist.get_world_size()
+        dist.all_gather_object(got, torch.cuda.max_memory_allocated())
+        return got
+
+    # TRAIN_ARCH on (data 2, model 2), the one-card global batch
+    cfg = get(TRAIN_ARCH)
+    bundle = build(cfg, OptConfig(lr=TRAIN_LR), mesh=make_device_mesh((2, 2)))
+    params = bundle.shard(bundle.init(SEED))
+    opt = adamw_init(params)
+    full = _batch_of(torch, cfg, info["batch"])
+    # the planted fault: the gradient of data rank 0's tokens alone
+    half = {k: v[:info["batch"] // 2] for k, v in full.items()}
+    fault_new, fault_opt, _ = bundle.train_step(params, opt,
+                                                bundle.shard_batch(half))
+    fault_grads = _grad_samples(torch, fault_opt["mu"])
+    fault_leaves = _leaf_norms(torch, fault_new, params)
+    del fault_new, fault_opt, half
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = bundle.shard_batch(full)
+    torch.cuda.reset_peak_memory_stats()
+    (new, new_opt, m), first_s, _ = _timed_step(
+        torch, lambda: bundle.train_step(params, opt, tokens))
+    leaves = _leaf_norms(torch, new, params)
+    grads = _grad_samples(torch, new_opt["mu"])
+    del params, opt
+    params, opt = new, new_opt
+    step_s, dispatch_s = [], []
+    for _ in range(MESH_TIMED_STEPS):
+        # the host's time inside the call, then the wall to the device's end
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle.train_step(params, opt, tokens, donate=True)
+        dispatch_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak = peaks()
+    prof = _profiled_step(torch, lambda: bundle.train_step(
+        params, opt, tokens, donate=True))
+    profs = [None] * dist.get_world_size()
+    dist.all_gather_object(profs, prof)
+    loss = float(m["loss"])
+    if lead:
+        def norm_gaps(got):
+            return {k: {"update_norm_rel_gap": abs(v[0] - info["leaves"][k][0])
+                        / max(info["leaves"][k][0], 1e-30),
+                        "norm_rel_gap": abs(v[1] - info["leaves"][k][1])
+                        / max(info["leaves"][k][1], 1e-30)}
+                    for k, v in got.items()}
+        gaps, fault_norm_gaps = norm_gaps(leaves), norm_gaps(fault_leaves)
+        grad_gaps = _grad_gaps(torch, grads, info["grads"])
+        fault_gaps = _grad_gaps(torch, fault_grads, info["grads"])
+        median = statistics.median(step_s)
+        tok = info["batch"] * TRAIN_SEQ
+        line = {"phase": "train_mesh", "part": "four_cards",
+                "arch": TRAIN_ARCH, "mesh": [2, 2],
+                "axes": ["data", "model"], "backend": "nccl",
+                "world_size": dist.get_world_size(), "batch": info["batch"],
+                "seq": TRAIN_SEQ, "loss": loss, "loss_one_card": info["loss"],
+                "loss_rel_gap": abs(loss - info["loss"]) / abs(info["loss"]),
+                "first_step_s": first_s, "step_s": step_s,
+                "dispatch_s": dispatch_s,
+                "s_per_step": median, "tokens_per_s": tok / median,
+                "s_per_step_one_card": info["s_per_step"],
+                "max_memory_allocated_per_card": peak,
+                "max_memory_allocated_one_card":
+                    info["max_memory_allocated"],
+                "profiled_step": prof, "profiled_step_by_rank": profs,
+                "leaves_after_one_step": gaps,
+                "max_update_norm_rel_gap": max(
+                    g["update_norm_rel_gap"] for g in gaps.values()),
+                "grad_rel_gaps": grad_gaps,
+                "max_grad_rel_gap": max(grad_gaps.values()),
+                "planted_fault": "data rank 0's tokens alone",
+                "fault_grad_rel_gaps": fault_gaps,
+                "fault_max_grad_rel_gap": max(fault_gaps.values()),
+                "fault_max_update_norm_rel_gap": max(
+                    g["update_norm_rel_gap"]
+                    for g in fault_norm_gaps.values()),
+                "nvidia_smi": smi}
+        emit(line)
+        _hold_four_cards(failures, line)
+    del params, opt, new, new_opt, tokens, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the compressed step on (pod 2, data 1, model 2)
+    comp = _compressed_vs_plain(torch, (2, 1, 2), "no_pod_sum")
+    if lead:
+        comp.update(phase="train_mesh", part="compressed_four_cards",
+                    loss_rel_gap=abs(comp["loss_compressed"]
+                                     - comp["loss_plain"])
+                    / max(1.0, abs(comp["loss_plain"])), nvidia_smi=smi)
+        emit(comp)
+        _hold_compressed(failures, comp, TOL_COMPRESSED_PARAM)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the MoE at its published widths, MESH_MOE_LAYERS layers, on
+    # (data 1, model 4): 32 experts a card
+    cfg = _moe_cut()
+    bundle = build(cfg, OptConfig(lr=TRAIN_LR), mesh=make_device_mesh((1, 4)))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, dropped = _moe_step(torch, bundle, bundle.shard(bundle.init(SEED)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = peaks()
+    if lead:
+        line = {"phase": "train_mesh", "part": "moe_four_cards",
+                "arch": MESH_MOE_ARCH, "mesh": [1, 4],
+                "axes": ["data", "model"],
+                "experts_per_card": cfg.n_experts // 4,
+                "reduced": {"n_layers": [48, MESH_MOE_LAYERS]},
+                "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "loss": loss,
+                "loss_one_card": info["moe_loss"],
+                "loss_rel_gap": abs(loss - info["moe_loss"])
+                / abs(info["moe_loss"]), "dropped_share": dropped,
+                "dropped_share_one_card": info["moe_dropped"],
+                "step_s_with_first_call": seconds,
+                "max_memory_allocated_per_card": peak, "nvidia_smi": smi}
+        emit(line)
+        # the drops are printed: bf16 partial sums over the model axis
+        # may flip a near-tie of the router's top-k
+        hold(failures, line["loss_rel_gap"] <= TOL_MESH_MOE,
+             f"train_mesh: MoE on (1, 4): {line}")
+    dist.barrier()
+    check(not failures, "; ".join(failures))
+
+
+def phase_train_mesh(torch, np):
+    """Sharded LM training on torch.distributed: the world-size-1 DTensor
+    steps on card 0, then, with MESH_CARDS cards or more, one rank per
+    card (see MESH_* above)."""
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models.model import build
+    from repro_torch.optim.adamw import OptConfig
+
+    failures = []
+    info = mesh_one_card(torch, np, failures)
+    cards = torch.cuda.device_count()
+    if cards < MESH_CARDS:
+        emit({"phase": "train_mesh", "part": "four_cards",
+              "skipped": f"{cards} card(s) visible; the multi-rank part "
+              f"needs {MESH_CARDS}"})
+        check(not failures, "; ".join(failures))
+        return
+    bundle = build(_moe_cut(), OptConfig(lr=TRAIN_LR))
+    info["moe_loss"], info["moe_dropped"] = _moe_step(
+        torch, bundle, bundle.init(SEED))
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        spawn_ranks(_mesh_rank, MESH_CARDS, args=(info,))
+    except Exception as e:  # noqa: BLE001 — recorded, then raised below
+        failures.append(f"train_mesh: the four-card ranks failed: "
+                        f"{str(e)[-2000:]}")
+    emit({"phase": "train_mesh", "part": "ranks_done",
+          "seconds": time.perf_counter() - t0})
+    check(not failures, "; ".join(failures))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4703,7 +5319,8 @@ def main() -> int:
                       "vqe": (phase_vqe, torch, np),
                       "distributed": (phase_distributed, torch, np),
                       "spmd": (phase_spmd, torch, np),
-                      "train": (phase_train, torch, np)}
+                      "train": (phase_train, torch, np),
+                      "train_mesh": (phase_train_mesh, torch, np)}
         unknown = [name for name in only if name not in standalone]
         if unknown:
             print(f"chip_smoke: unknown phases {unknown}; standalone "
@@ -4761,6 +5378,8 @@ def main() -> int:
                                      ENCDEC_ARCH)
         torch.cuda.empty_cache()
         by_path["train"] = timed("train", phase_train, torch, np)
+        torch.cuda.empty_cache()
+        timed("train_mesh", phase_train_mesh, torch, np)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1

@@ -22,6 +22,13 @@ bit.  A bf16 tensor is stored widened to f32 with ``"bfloat16"`` in the
 manifest, as the reference stores its bf16 arrays: :meth:`load` returns
 it widened (numpy has no bf16), :meth:`restore` narrows it back to
 ``torch.bfloat16``.
+
+Sharded trees (one process per device): every rank calls :meth:`save`,
+which gathers each ``DTensor`` leaf whole, and rank 0 alone writes, so the
+files are those a one-device run writes.  :meth:`restore` with
+``shardings=`` places each leaf on its mesh, whatever mesh wrote it: a
+one-device checkpoint restores onto 2x2 and a 2x2 one onto one device
+(the reference's elastic restore).
 """
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import faults
 
@@ -54,6 +63,12 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
     for k, v in items:
         flat.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
     return flat
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process group,
+    or a process without one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _to_host(leaf):
@@ -80,15 +95,22 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
         # sweep the tmp dirs of a process killed mid-write; published steps
         # are never touched
-        for p in self.dir.glob("step_*.tmp"):
-            shutil.rmtree(p, ignore_errors=True)
+        if _writes():
+            for p in self.dir.glob("step_*.tmp"):
+                shutil.rmtree(p, ignore_errors=True)
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree, blocking: bool = False) -> None:
         """Copy ``tree`` to host memory now; write it to disk on a
-        background thread (``blocking=True``: here)."""
+        background thread (``blocking=True``: here).  Under a process group
+        every rank must call it: ``DTensor`` leaves are gathered whole (a
+        collective), and rank 0 writes."""
         self.wait()
-        host = {k: _to_host(v) for k, v in _flatten(tree).items()}
+        flat = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                for k, v in _flatten(tree).items()}
+        if not _writes():
+            return
+        host = {k: _to_host(v) for k, v in flat.items()}
 
         def write():
             fault = faults.should_fire("checkpoint.write")
@@ -172,13 +194,19 @@ class CheckpointManager:
         leaves come back widened to f32 (see the module docstring)."""
         return {key: arr for key, (arr, _) in self._load(step).items()}
 
-    def restore(self, step: int, target: Dict[str, Any], device=None):
+    def restore(self, step: int, target: Dict[str, Any], device=None,
+                shardings=None):
         """Restore into the flat dict ``target`` of tensors, arrays or
         shapes: every leaf must be in ``target`` with its shape, and every
         target leaf in the checkpoint.  A leaf lands on its target tensor's
         device, else on ``device`` (default the CPU); unicode leaves stay
-        numpy arrays."""
+        numpy arrays.  ``shardings`` (a tree of
+        :class:`~repro_torch.models.common.NamedSharding` whose flattened
+        keys are ``target``'s) places each leaf on its mesh instead, as a
+        ``DTensor``: every rank reads the whole leaf and keeps its
+        shards."""
         loaded = self._load(step)
+        placed = {} if shardings is None else _flatten_shardings(shardings)
         flat_target = dict(target)
         out = {}
         for key, (arr, dtype) in loaded.items():
@@ -188,6 +216,9 @@ class CheckpointManager:
             shape = tuple(want.shape) if hasattr(want, "shape") else tuple(want)
             if tuple(arr.shape) != shape:
                 raise ValueError(f"{key}: shape {arr.shape} != {shape}")
+            if key in placed:
+                out[key] = _placed(_as_tensor(arr, dtype, "cpu"), placed[key])
+                continue
             dev = want.device if isinstance(want, torch.Tensor) else device
             out[key] = _as_tensor(arr, dtype, dev)
         missing = set(flat_target) - set(out)
@@ -203,3 +234,23 @@ def _as_tensor(arr: np.ndarray, dtype: str, device):
     if dtype == "bfloat16":
         t = t.to(torch.bfloat16)
     return t.to(device if device is not None else "cpu")
+
+
+def _flatten_shardings(tree, prefix: str = "") -> Dict[str, Any]:
+    """A nested dict of ``NamedSharding`` leaves as ``{"a/b": sharding}``."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    flat: Dict[str, Any] = {}
+    for k, v in tree.items():
+        flat.update(_flatten_shardings(v, f"{prefix}/{k}" if prefix else k))
+    return flat
+
+
+def _placed(t: torch.Tensor, sharding):
+    """The whole tensor ``t`` as a ``DTensor`` placed by ``sharding``, on
+    this rank's device of the mesh."""
+    from torch.distributed.tensor import distribute_tensor
+    mesh = sharding.mesh
+    if mesh.device_type == "cuda":
+        t = t.to(torch.device("cuda", torch.cuda.current_device()))
+    return distribute_tensor(t, mesh, sharding.placements, src_data_rank=None)

@@ -1,10 +1,18 @@
 """Device meshes of the port — counterpart of ``repro.launch.mesh``.
 
-A :class:`Mesh` is a named grid of ``torch.device``s: the placement map
-that :class:`repro_torch.core.distributed.DistributedBMPS` (column shards)
-and :func:`repro_torch.core.sharding.ensemble_sharding` (ensemble members)
-read.  It compiles nothing and owns no process group: each cell only says
-where a shard or a member runs.
+Two kinds of mesh live here, for two kinds of program:
+
+* A :class:`Mesh` is a named grid of ``torch.device``s: the placement map
+  that :class:`repro_torch.core.distributed.DistributedBMPS` (column
+  shards) and :func:`repro_torch.core.sharding.ensemble_sharding`
+  (ensemble members) read, from one process with a thread per shard.  It
+  compiles nothing and owns no process group: each cell only says where a
+  shard or a member runs.
+* :func:`make_device_mesh` returns a ``torch.distributed`` ``DeviceMesh``
+  over a process group with one process (rank) per device: the SPMD
+  program of sharded LM training, where each rank runs the same step on
+  its shards.  :func:`init_distributed` joins the group, and
+  :func:`spawn_ranks` starts one process per rank on this host.
 
 The default devices are every visible CUDA device; without a card a mesh
 needs ``devices=`` (the CPU tests pass ``("cpu",)``).  Unlike a JAX mesh,
@@ -15,10 +23,13 @@ anywhere, with the same values, as blocking never changes them.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import os
+import socket
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _device(d) -> torch.device:
@@ -102,3 +113,102 @@ def peps_mesh(n_col_shards: int, batch: int = 1, devices=None) -> Mesh:
 def col_mesh(devices) -> Mesh:
     """1-D ``('col',)`` mesh over an explicit device list."""
     return make_mesh((len(devices),), ("col",), devices)
+
+
+# ---------------------------------------------------------------------------
+# Process-group meshes (one rank per device)
+# ---------------------------------------------------------------------------
+
+def mesh_axes(shape) -> Tuple[str, ...]:
+    """The reference launcher's axis names for a mesh of ``shape``:
+    ``(data, model)``, or ``(pod, data, model)`` for three axes."""
+    if len(shape) == 3:
+        return ("pod", "data", "model")
+    if len(shape) in (1, 2):
+        return ("data", "model")[:len(shape)]
+    raise ValueError(f"a mesh of {len(shape)} axes has no reference names; "
+                     f"expected 1 to 3 (e.g. 2x2 or 2x2x2)")
+
+
+def init_distributed(device, init_method: str = None) -> torch.device:
+    """Join the process group described by the environment (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT`` as ``torchrun`` or
+    :func:`spawn_ranks` set them, or a store named by ``init_method``,
+    such as ``file:///path``; ``LOCAL_RANK`` picks the card) and return
+    this rank's device: ``cuda:LOCAL_RANK`` over NCCL, or the CPU over
+    gloo when ``device`` is the CPU.  A rank without a card of its own
+    raises: NCCL refuses two ranks on one card."""
+    device = torch.device(device)
+    rank = int(os.environ.get("RANK", "0"))
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    local = int(os.environ.get("LOCAL_RANK", str(rank)))
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available: pass the CPU "
+                               "device to train on gloo")
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"rank {rank} (local rank {local}) has no card: "
+                f"{torch.cuda.device_count()} visible, one rank per card")
+        device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
+        backend = "nccl"
+    elif device.type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"unsupported device {device}")
+    if not dist.is_initialized():
+        kwargs = {"device_id": device} if backend == "nccl" else {}
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
+                                world_size=world, **kwargs)
+    return device
+
+
+def make_device_mesh(shape, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` over the joined process group, rank
+    ``r`` at row-major cell ``r``, with the reference's axis names
+    (:func:`mesh_axes`).  The group's size must be the mesh's: a rank per
+    cell."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = tuple(int(s) for s in shape)
+    axes = mesh_axes(shape)
+    if int(np.prod(shape)) != dist.get_world_size():
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs "
+                         f"{int(np.prod(shape))} ranks, the group has "
+                         f"{dist.get_world_size()}")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, world: int, port: int, threads: int,
+               fn: Callable, args: tuple) -> None:
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    if threads:
+        torch.set_num_threads(threads)
+    try:
+        fn(*args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_ranks(fn: Callable, world: int, args: tuple = (),
+                threads: int = 0) -> None:
+    """Run ``fn(*args)`` in ``world`` new processes (spawned), rank ``r``
+    with ``RANK``/``LOCAL_RANK`` ``r`` and a free localhost port for the
+    group's store; each calls :func:`init_distributed` itself.
+    ``threads`` > 0 sets each rank's intra-op threads.  Returns when every
+    rank has ended; a rank that fails or exits with a code other than 0
+    raises ``torch.multiprocessing.ProcessExitedException`` (or
+    ``ProcessRaisedException``) here, after the others are ended."""
+    import torch.multiprocessing as mp
+    mp.start_processes(_rank_main, args=(world, _free_port(), threads, fn,
+                                         args),
+                       nprocs=world, start_method="spawn")

@@ -20,34 +20,39 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models.common import (Config, P_, apply_mrope, apply_rope,
-                                      rms_norm)
+                                      constrain, local_call, reshape,
+                                      rms_norm, split_last, unshard)
+
+# the (B, S, H, dh) layout's head axis constrained to the model axis
+HEADS = ("batch", None, "act_heads", None)
 
 
 def attn_specs(cfg: Config, n_layers: int) -> Dict[str, P_]:
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     L = (n_layers,)
     specs = {
-        "wq": P_(L + (d, h, dh)),
-        "wk": P_(L + (d, kv, dh)),
-        "wv": P_(L + (d, kv, dh)),
-        "wo": P_(L + (h, dh, d)),
+        "wq": P_(L + (d, h, dh), ("layers", "embed", "heads", "head_dim")),
+        "wk": P_(L + (d, kv, dh), ("layers", "embed", "kv_heads", "head_dim")),
+        "wv": P_(L + (d, kv, dh), ("layers", "embed", "kv_heads", "head_dim")),
+        "wo": P_(L + (h, dh, d), ("layers", "heads", "head_dim", "embed")),
     }
     if cfg.qk_norm:
-        specs["q_norm"] = P_(L + (dh,), init="ones")
-        specs["k_norm"] = P_(L + (dh,), init="ones")
+        specs["q_norm"] = P_(L + (dh,), ("layers", "head_dim"), init="ones")
+        specs["k_norm"] = P_(L + (dh,), ("layers", "head_dim"), init="ones")
     return specs
 
 
 def _proj(x, w):
     """einsum('bsd,dhk->bshk') as one matmul."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k).to(x.dtype)).reshape(*x.shape[:2], h, k)
+    return split_last(x @ reshape(w, d, h * k).to(x.dtype), h, k)
 
 
 def _out(o, wo):
     """einsum('bshk,hkd->bsd') as one matmul."""
     h, k, d = wo.shape
-    return o.reshape(*o.shape[:2], h * k) @ wo.reshape(h * k, d).to(o.dtype)
+    return (reshape(o, *o.shape[:2], h * k)
+            @ reshape(wo, h * k, d).to(o.dtype))
 
 
 def _qkv(x, p, cfg: Config, positions, rope: bool):
@@ -62,15 +67,31 @@ def _qkv(x, p, cfg: Config, positions, rope: bool):
         else:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return constrain(q, HEADS), constrain(k, HEADS), v
 
 
 def _attend(q, k, v, causal: bool):
     """Full-sequence attention through the ``attention`` site, in the
-    (B, S, H, dh) layout (the kernel reads the transposed views in place)."""
-    out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=causal)
-    return out.transpose(1, 2)
+    (B, S, H, dh) layout (the kernel reads the transposed views in place).
+
+    Under a mesh the site runs on each rank's (batch, head) shards, on one
+    layout for q, k and v: q's, if every mesh axis that splits q's heads
+    splits k's too (then each rank's query heads read its own key and value
+    heads), else q's with its heads whole."""
+    def attend(q, k, v):
+        out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal)
+        return out.transpose(1, 2)
+
+    if not hasattr(q, "placements"):
+        return attend(q, k, v)
+    q = unshard(q, 1, 3)
+    layout = constrain(k, HEADS).placements
+    if any(pq != pk and pq.is_shard(2) for pq, pk in zip(q.placements,
+                                                          layout)):
+        q = unshard(q, 2)
+    k, v = (t.redistribute(q.device_mesh, q.placements) for t in (k, v))
+    return local_call(attend, (q, k, v), list(q.placements))
 
 
 def attn_apply(x, p, cfg: Config, positions=None, causal: bool = True,
@@ -116,6 +137,7 @@ def cross_attn_apply(x, p, cfg: Config, mem_k, mem_v):
     q = _proj(x, p["wq"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
+    q = constrain(q, HEADS)
     out = _attend(q, mem_k.to(q.dtype), mem_v.to(q.dtype), causal=False)
     return _out(out, p["wo"])
 

@@ -4,20 +4,27 @@ SwiGLU, rotary embeddings, the training loss and rematerialisation.
 Counterpart of ``repro.models.common``.  Parameters are declared as trees
 (nested dicts) of :class:`P_` leaves and drawn by :func:`init_params` from a
 ``torch.Generator`` with the reference's distributions; stacked layers keep
-their leading axis, so a parameter tree converts key for key.  The
-reference's logical axes, sharding rules and ``constrain`` have no
-counterpart on one card.
+their leading axis, so a parameter tree converts key for key.
+
+Each leaf also carries the reference's logical axis names, and a rules
+table maps them to the axes of a ``torch.distributed`` ``DeviceMesh`` with
+the reference's divisibility fallback (:func:`resolve_spec`): a sharded
+model's parameters are ``DTensor``s with those placements, and
+:func:`constrain` redistributes an activation that is a ``DTensor``
+(the reference's ``with_sharding_constraint``).  Without a mesh nothing
+is a ``DTensor`` and :func:`constrain` returns its input.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint as tc
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.device import resolve_device
 
@@ -28,10 +35,19 @@ from repro_torch.device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class P_:
-    """A parameter leaf: shape and init (normal | zeros | ones | small)."""
+    """A parameter leaf: shape, logical axis names (None: every axis
+    replicated) and init (normal | zeros | ones | small)."""
     shape: Tuple[int, ...]
+    logical: Optional[Tuple[Optional[str], ...]] = None
     init: str = "normal"
     dtype: Any = None             # defaults to the config's param dtype
+
+    def __post_init__(self):
+        if self.logical is None:
+            object.__setattr__(self, "logical", (None,) * len(self.shape))
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"P_: shape {self.shape} and logical axes "
+                             f"{self.logical} differ in length")
 
 
 def tree_leaves(tree, prefix: Tuple[str, ...] = ()):
@@ -111,6 +127,225 @@ def unstack(tree) -> list:
         n = len(next(iter(parts.values())))
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
     return list(torch.unbind(tree))
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules
+# ---------------------------------------------------------------------------
+
+# the reference's rules: FSDP over 'data' (embed axis of weights), TP/EP
+# over 'model'
+DEFAULT_RULES: Dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "embed": "data",          # FSDP / ZeRO-3 weight sharding
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "expert": "model",
+    "expert_mlp": None,
+    "vocab": "model",
+    "seq": None,
+    "kv_seq": None,
+    "layers": None,
+    "ssm_inner": "model",
+    "ssm_heads": "model",
+    "ssm_state": None,
+    "ssm_bc": None,
+    "conv": None,
+    "frames": None,
+    # activation-only axes
+    "act_embed": None,
+    "act_heads": "model",
+    "act_mlp": "model",
+}
+
+
+# an activation (B, S, D) split over the batch axes, its features whole
+ACT_EMBED = ("batch", None, "act_embed")
+
+
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """Axis name -> size of a ``DeviceMesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _axes_size(mesh, axes) -> int:
+    sizes = mesh_sizes(mesh)
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return n
+
+
+def resolve_spec(shape: Sequence[int], logical: Sequence[Optional[str]],
+                 mesh) -> tuple:
+    """Logical axes -> one placement per mesh dimension, with the
+    reference's divisibility fallback: a tensor axis takes the rule's mesh
+    axes that the mesh has and no earlier axis took, if its length divides
+    by their product, else it is replicated.  A tensor axis over two mesh
+    axes (``batch`` over ``pod`` and ``data``) is ``Shard`` on both, split
+    in mesh order as the reference's ``PartitionSpec(("pod", "data"))``.
+    The rules are the reference's, :data:`DEFAULT_RULES`."""
+    names = mesh.mesh_dim_names
+    placements = [Replicate()] * len(names)
+    used = set()
+    for i, (dim, name) in enumerate(zip(shape, logical)):
+        rule = DEFAULT_RULES.get(name) if name else None
+        if rule is None:
+            continue
+        axes = (rule,) if isinstance(rule, str) else tuple(rule)
+        axes = tuple(a for a in axes if a in names and a not in used)
+        if axes and dim % _axes_size(mesh, axes) == 0:
+            used.update(axes)
+            for a in axes:
+                placements[names.index(a)] = Shard(i)
+    return tuple(placements)
+
+
+class NamedSharding(NamedTuple):
+    """Where a tensor's shards go: a ``DeviceMesh`` and one placement per
+    mesh axis (the reference's ``jax.sharding.NamedSharding``)."""
+    mesh: Any
+    placements: tuple
+
+
+def param_shardings(specs, mesh):
+    """The :class:`NamedSharding` of every leaf of ``specs`` on ``mesh``,
+    as a tree."""
+    if isinstance(specs, dict):
+        return {k: param_shardings(v, mesh) for k, v in specs.items()}
+    return NamedSharding(mesh, resolve_spec(specs.shape, specs.logical, mesh))
+
+
+def distribute(tree, shardings):
+    """Full tensors onto their meshes: every leaf of ``tree`` as a
+    ``DTensor`` with the placements of its :class:`NamedSharding` in
+    ``shardings`` (a tree of the same keys).  Each rank keeps its own
+    shards of the full tensor it holds, with no communication: every rank
+    must hold the same full tree."""
+    from torch.distributed.tensor import distribute_tensor
+    if isinstance(tree, dict):
+        return {k: distribute(v, shardings[k]) for k, v in tree.items()}
+    return distribute_tensor(tree, shardings.mesh, shardings.placements,
+                             src_data_rank=None)
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """The mesh axes a batch is split over: ``pod`` and ``data``, those the
+    mesh has."""
+    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+
+
+def constrain(x, logical: Sequence[Optional[str]]):
+    """The reference's ``constrain``: ``x`` redistributed to the placements
+    of its logical axes when it is a ``DTensor``, else ``x`` itself."""
+    if not isinstance(x, DTensor):
+        return x
+    want = resolve_spec(x.shape, logical, x.device_mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def local_call(fn: Callable, args: Sequence, out_placements):
+    """``fn(*args)``, on each rank's local shards when an argument is a
+    ``DTensor`` (``local_map`` with the arguments' own placements as its
+    ``in_placements``): the counterpart of a ``shard_map`` region whose
+    in-specs are the operands' shardings.  ``out_placements`` is the
+    output's placements as a list (a tuple of lists for several outputs).
+    An argument whole over a mesh axis that splits another one gets a
+    gradient partial over that axis (each rank's slice contributes its
+    part).  Without a ``DTensor`` among ``args`` this is ``fn(*args)``."""
+    dts = [a for a in args if isinstance(a, DTensor)]
+    if not dts:
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+    split = {i for a in dts for i, pl in enumerate(a.placements)
+             if pl.is_shard()}
+
+    def grad(a):
+        if not isinstance(a, DTensor):
+            return None
+        return [Partial() if i in split and not pl.is_shard() else pl
+                for i, pl in enumerate(a.placements)]
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=tuple(a.placements if isinstance(
+                         a, DTensor) else None for a in args),
+                     in_grad_placements=tuple(grad(a) for a in args),
+                     device_mesh=dts[0].device_mesh)(*args)
+
+
+class _PlacedReshape(torch.autograd.Function):
+    """A ``DTensor`` reshape whose gradient is placed as its output was
+    before it is reshaped back: the ops behind a reshape may hand back a
+    gradient split along an axis that the reverse view cannot split."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        y = x.reshape(shape)
+        # a gradient is never partial where its forward value was
+        ctx.in_shape = x.shape
+        ctx.placements = tuple(Replicate() if pl.is_partial() else pl
+                               for pl in y.placements)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.placements != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g.reshape(ctx.in_shape), None
+
+
+def reshape(x, *shape: int):
+    """``x.reshape(shape)``; for a ``DTensor``, with its gradient placed as
+    the output (see :class:`_PlacedReshape`)."""
+    if isinstance(x, DTensor):
+        return _PlacedReshape.apply(x, shape)
+    return x.reshape(shape)
+
+
+def split_last(x, *sizes: int):
+    """``x.reshape(*x.shape[:-1], *sizes)``.  A ``DTensor`` whose last
+    axis is split over mesh axes that ``sizes[0]`` does not divide by
+    (``DTensor`` can view a split axis only along whole blocks of its
+    first factor) is first made whole along that axis."""
+    if isinstance(x, DTensor):
+        n = 1
+        for i, pl in enumerate(x.placements):
+            if pl.is_shard(x.dim() - 1):
+                n *= x.device_mesh.size(i)
+        if sizes[0] % n:
+            x = unshard(x, -1)
+    return reshape(x, *x.shape[:-1], *sizes)
+
+
+def lookup(table, tokens):
+    """``table[tokens]``: the rows of an embedding table.  On a mesh the
+    lookup runs on each rank's tokens against the whole table (gathered
+    at the region's boundary, its gradient reduce-scattered back), since
+    the index ops' ``DTensor`` rules do not hold for a sharded table in
+    every release."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    out = list(getattr(tokens, "placements",
+                       [Replicate()] * table.device_mesh.ndim))
+    return local_call(lambda t, i: t[i], (unshard(table, 0, 1), tokens), out)
+
+
+def unshard(x, *dims: int):
+    """``x`` with its tensor axes ``dims`` whole on every rank: a
+    ``DTensor`` sharded along one of them is redistributed to replicate
+    those mesh axes; anything else comes back as it is.  The models call it
+    at an op whose ``DTensor`` rule cannot take a sharded operand axis."""
+    if not isinstance(x, DTensor):
+        return x
+    dims = {d % x.dim() for d in dims}
+    want = tuple(Replicate() if isinstance(pl, Shard) and pl.dim in dims
+                 else pl for pl in x.placements)
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
 
 
 # ---------------------------------------------------------------------------
@@ -242,7 +477,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     f32 (logsumexp minus the gold logit); labels (B, S)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    gold = unshard(logits, -1).gather(-1, labels[..., None].long())[..., 0]
     return torch.mean(logz - gold)
 
 

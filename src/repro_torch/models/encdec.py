@@ -26,8 +26,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as att
-from repro_torch.models.common import (Config, P_, cross_entropy, remat,
-                                      rms_norm, swiglu, take, unstack)
+from repro_torch.models.common import (ACT_EMBED, Config, P_, constrain,
+                                      cross_entropy, lookup, remat, rms_norm,
+                                      swiglu, take, unstack)
 from repro_torch.models.transformer import CacheSpec, mlp_specs
 
 # learned decoder positions: the reference sizes them for its largest
@@ -38,31 +39,33 @@ DEC_POSITIONS = 32768
 def encdec_specs(cfg: Config) -> Dict[str, object]:
     le, ld, d = cfg.n_enc_layers, cfg.n_layers, cfg.d_model
     return {
-        "embed": P_((cfg.vocab, d)),
-        "pos_dec": P_((DEC_POSITIONS, d), init="small"),
+        "embed": P_((cfg.vocab, d), ("vocab", "embed")),
+        "pos_dec": P_((DEC_POSITIONS, d), (None, "embed"), init="small"),
         "enc": {
-            "ln1": P_((le, d), init="ones"),
-            "ln2": P_((le, d), init="ones"),
+            "ln1": P_((le, d), ("layers", "embed"), init="ones"),
+            "ln2": P_((le, d), ("layers", "embed"), init="ones"),
             "attn": att.attn_specs(cfg, le),
             "mlp": mlp_specs(cfg, le),
         },
-        "enc_norm": P_((d,), init="ones"),
+        "enc_norm": P_((d,), ("embed",), init="ones"),
         "dec": {
-            "ln1": P_((ld, d), init="ones"),
-            "ln_x": P_((ld, d), init="ones"),
-            "ln2": P_((ld, d), init="ones"),
+            "ln1": P_((ld, d), ("layers", "embed"), init="ones"),
+            "ln_x": P_((ld, d), ("layers", "embed"), init="ones"),
+            "ln2": P_((ld, d), ("layers", "embed"), init="ones"),
             "attn": att.attn_specs(cfg, ld),
             "xattn": att.attn_specs(cfg, ld),
             "mlp": mlp_specs(cfg, ld),
         },
-        "final_norm": P_((d,), init="ones"),
-        "head": P_((d, cfg.vocab)),
+        "final_norm": P_((d,), ("embed",), init="ones"),
+        "head": P_((d, cfg.vocab), ("embed", "vocab")),
     }
 
 
 def _mlp(h, lp):
+    """The layer's SwiGLU with its residual: the layer's output."""
     z = rms_norm(h, lp["ln2"])
-    return h + swiglu(z, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+    out = h + swiglu(z, lp["mlp"]["wg"], lp["mlp"]["wu"], lp["mlp"]["wd"])
+    return constrain(out, ACT_EMBED)
 
 
 def _logits(x, params):
@@ -76,7 +79,7 @@ def encode(params, cfg: Config, frames: torch.Tensor) -> torch.Tensor:
                                positions=None, causal=False, rope=False)
         return _mlp(h, lp)
 
-    x = frames.to(cfg.act_dtype)
+    x = constrain(frames.to(cfg.act_dtype), ACT_EMBED)
     for lp in unstack(params["enc"]):
         x = remat(layer, cfg)(x, lp)
     return rms_norm(x, params["enc_norm"])
@@ -93,8 +96,8 @@ def decode_train(params, cfg: Config, tokens, enc_out) -> torch.Tensor:
         return _mlp(h, lp)
 
     s = tokens.shape[1]
-    x = params["embed"][tokens].to(cfg.act_dtype)
-    x = x + params["pos_dec"][:s].to(x.dtype)[None]
+    x = lookup(params["embed"], tokens).to(cfg.act_dtype)
+    x = constrain(x + params["pos_dec"][:s].to(x.dtype)[None], ACT_EMBED)
     for lp in unstack(params["dec"]):
         x = remat(layer, cfg)(x, lp, enc_out)
     return _logits(x, params)

@@ -1,25 +1,38 @@
-"""build(cfg, opt_cfg) -> ModelBundle: specs, init, the loss and train
-step, prefill and serve steps.
+"""build(cfg, opt_cfg, mesh) -> ModelBundle: specs, init, shardings, the
+loss and train steps, prefill and serve steps.
 
-Counterpart of ``repro.models.model`` on one card: no mesh and no
-shardings.  The bundle is the same for every family: ``transformer`` picks
-the stack, loss, cache and decode of the decoder-only ones (dense, moe,
-vlm, ssm, hybrid), ``encdec`` those of the encoder-decoder.  Parameters
-are plain nested dicts of tensors that do not require grad:
-:meth:`ModelBundle.train_step` takes the gradient with
+Counterpart of ``repro.models.model``.  The bundle is the same for every
+family: ``transformer`` picks the stack, loss, cache and decode of the
+decoder-only ones (dense, moe, vlm, ssm, hybrid), ``encdec`` those of the
+encoder-decoder.  Parameters are plain nested dicts of tensors that do not
+require grad: :meth:`ModelBundle.train_step` takes the gradient with
 ``torch.autograd.grad`` over detached leaves and returns new parameters.
+
+With a ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` with axes
+``data``, ``model`` and optionally ``pod``; one process per device) the
+parameters, moments and batch are ``DTensor``s placed by the reference's
+rules (:meth:`ModelBundle.param_shardings`, :meth:`opt_shardings`,
+:meth:`batch_sharding`; :meth:`shard` puts full parameters there), and the
+same ``train_step`` runs the SPMD program: every op on its shards, the
+collectives where the placements ask for them.  Without a mesh nothing is
+a ``DTensor`` and the step is the one-device step, bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
-from repro_torch.models.common import Config, init_params, tree_leaves
+from repro_torch.models.common import (Config, NamedSharding, batch_axes,
+                                      distribute, init_params, mesh_sizes,
+                                      param_shardings, tree_leaves)
 from repro_torch.optim.adamw import OptConfig, adamw_init, adamw_update
 
 
@@ -49,11 +62,19 @@ def split_batch(batch, microbatches: int):
     return parts
 
 
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of the same keys."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
 @dataclasses.dataclass
 class ModelBundle:
     cfg: Config
     specs: Any
     opt_cfg: OptConfig = dataclasses.field(default_factory=OptConfig)
+    mesh: Any = None              # a DeviceMesh, or None for one device
 
     def init(self, seed: int, device=None) -> Any:
         """Parameters drawn on ``device`` from a ``torch.Generator`` seeded
@@ -73,6 +94,64 @@ class ModelBundle:
         """AdamW's state for :meth:`abstract_params`, as ``meta`` tensors."""
         return adamw_init(self.abstract_params())
 
+    # ------------------------------------------------------------- shardings
+    def _need_mesh(self):
+        if self.mesh is None:
+            raise ValueError("this bundle has no mesh: build(cfg, mesh=...)")
+        return self.mesh
+
+    def param_shardings(self) -> Any:
+        """A :class:`NamedSharding` per parameter, by the reference's
+        rules."""
+        return param_shardings(self.specs, self._need_mesh())
+
+    def opt_shardings(self) -> Any:
+        """AdamW's moments placed as their parameters, the count
+        replicated."""
+        ps = self.param_shardings()
+        mesh = self._need_mesh()
+        return {"mu": ps, "nu": ps,
+                "count": NamedSharding(mesh, (Replicate(),) * mesh.ndim)}
+
+    def batch_sharding(self, batch_size: Optional[int] = None
+                       ) -> NamedSharding:
+        """The placements of a (B, S) batch: B split over (pod, data); a
+        ``batch_size`` that does not divide falls back to the pods alone,
+        then to replicated (the reference's fallback)."""
+        mesh = self._need_mesh()
+        sizes, names = mesh_sizes(mesh), mesh.mesh_dim_names
+        axes = batch_axes(mesh)
+        if batch_size is not None:
+            n = 1
+            for a in axes:
+                n *= sizes[a]
+            if batch_size % n:
+                axes = tuple(a for a in axes
+                             if a == "pod" and batch_size % sizes[a] == 0)
+        return NamedSharding(mesh, tuple(
+            Shard(0) if a in axes else Replicate() for a in names))
+
+    def shard(self, params):
+        """A full parameter tree onto the mesh by :meth:`param_shardings`
+        (see ``common.distribute``; an AdamW state goes by
+        ``distribute(state, bundle.opt_shardings())``)."""
+        return distribute(params, self.param_shardings())
+
+    def shard_batch(self, batch):
+        """A full batch onto the mesh: ``tokens``, ``labels`` and the
+        encdec's ``frames`` split on their batch axis by
+        :meth:`batch_sharding`, the vlm's (3, B, S) ``positions`` on its
+        axis 1."""
+        bs = self.batch_sharding(batch["tokens"].shape[0])
+        out = {}
+        for k, v in batch.items():
+            placements = bs.placements
+            if k == "positions" and v.dim() == 3:
+                placements = tuple(Shard(1) if p.is_shard() else p
+                                   for p in placements)
+            out[k] = distribute(v, NamedSharding(bs.mesh, placements))
+        return out
+
     # ----------------------------------------------------------------- steps
     def loss_fn(self, params, batch) -> torch.Tensor:
         if self._encdec:
@@ -81,13 +160,28 @@ class ModelBundle:
 
     def value_and_grad(self, params, batch):
         """(loss, gradient tree): ``torch.autograd.grad`` of
-        :meth:`loss_fn` over detached copies of the parameter leaves."""
-        leaves = [t.detach().requires_grad_() for _, t in tree_leaves(params)]
-        with torch.enable_grad():
+        :meth:`loss_fn` over detached copies of the parameter leaves.  On a
+        mesh the loss comes back whole on every rank and each gradient
+        placed as its parameter; plain tensors that the models make (the
+        default positions, RoPE's frequencies) count as replicated."""
+        pairs = tree_leaves(params)
+        leaves = [t.detach().requires_grad_() for _, t in pairs]
+        with torch.enable_grad(), self._replicating():
             loss = self.loss_fn(_with_leaves(params, leaves), batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
+        if isinstance(loss, DTensor):
+            loss = loss.full_tensor()
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     if g.placements != p.placements else g
+                     for g, (_, p) in zip(grads, pairs)]
         return loss.detach(), _with_leaves(params, list(grads))
+
+    def _replicating(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+        return implicit_replication()
 
     def train_step(self, params, opt_state, batch, microbatches: int = 1,
                    donate: bool = False):
@@ -112,6 +206,52 @@ class ModelBundle:
             grads, opt_state, params, self.opt_cfg, donate=donate)
         metrics["loss"] = loss
         return new_params, new_opt, metrics
+
+    def train_step_compressed(self, params, opt_state, err_state, batch):
+        """A train step whose cross-pod gradient all-reduce carries int8
+        with error feedback (a mesh with a ``pod`` axis): the reference's
+        ``shard_map`` manual over ``pod`` alone.  Each pod takes the
+        gradient of its batch shard with ``data`` and ``model`` still
+        ``DTensor`` axes, every leaf is averaged over the pods by
+        :func:`~repro_torch.optim.compression.psum_compressed`, the loss is
+        averaged over the pods, then AdamW.  Returns (params, opt state,
+        error state, metrics)."""
+        from repro_torch.optim.compression import psum_compressed
+        mesh = self._need_mesh()
+        names = mesh.mesh_dim_names
+        if "pod" not in names:
+            raise ValueError("train_step_compressed needs a mesh with a "
+                             "'pod' axis")
+        pod = names.index("pod")
+        sub = mesh[tuple(n for n in names if n != "pod")]
+        group = mesh.get_group("pod")
+
+        def per_pod(t):
+            """The pod's own shard of t, placed on the other axes."""
+            rest = t.placements[:pod] + t.placements[pod + 1:]
+            return DTensor.from_local(t.to_local(), sub, rest)
+
+        def whole(t, like):
+            """A per-pod result (the same in every pod) placed as ``like``
+            on the whole mesh."""
+            return DTensor.from_local(t.to_local(), mesh, like.placements,
+                                      shape=like.shape, stride=like.stride())
+
+        p_pod = _tree_map(per_pod, params)
+        loss, grads = self.value_and_grad(p_pod, _tree_map(per_pod, batch))
+        pairs = [psum_compressed(g, e, group) for g, e in zip(
+            [g for _, g in tree_leaves(grads)],
+            [per_pod(e) for _, e in tree_leaves(err_state)])]
+        grads = _with_leaves(params, [g for g, _ in pairs])
+        err = _with_leaves(params, [e for _, e in pairs])
+        dist.all_reduce(loss, group=group)
+        loss = loss / dist.get_world_size(group)
+        new_params, new_opt, metrics = adamw_update(
+            grads, _tree_map(per_pod, opt_state), p_pod, self.opt_cfg)
+        metrics["loss"] = loss
+        return (_tree_map(whole, new_params, params),
+                _tree_map(whole, new_opt, opt_state),
+                _tree_map(whole, err, err_state), metrics)
 
     def prefill_step(self, params, tokens):
         """Prefill with the cache sized to the prompt, as the reference does:
@@ -143,7 +283,10 @@ class ModelBundle:
         return encdec_mod if self._encdec else tf_mod
 
 
-def build(cfg: Config, opt_cfg: OptConfig = None) -> ModelBundle:
+def build(cfg: Config, opt_cfg: OptConfig = None, mesh=None) -> ModelBundle:
+    """The bundle of ``cfg``: on one device, or on ``mesh`` (a
+    ``DeviceMesh``; see the module docstring)."""
     specs = (encdec_mod.encdec_specs(cfg) if cfg.family == "encdec"
              else tf_mod.lm_specs(cfg))
-    return ModelBundle(cfg=cfg, specs=specs, opt_cfg=opt_cfg or OptConfig())
+    return ModelBundle(cfg=cfg, specs=specs, opt_cfg=opt_cfg or OptConfig(),
+                       mesh=mesh)

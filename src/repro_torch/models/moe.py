@@ -1,10 +1,20 @@
 """Top-k mixture of experts with a fixed capacity per expert.
 
-Counterpart of ``repro.models.moe`` on one card: its per-shard
-``_moe_local`` with every expert local, no model axis and no FSDP axes,
-which is what the reference runs on a 1x1 mesh.  The two weight layouts of
+Counterpart of ``repro.models.moe``.  Without a mesh every expert is local,
+which is what the reference runs on a 1x1 mesh; the two weight layouts of
 ``cfg.moe_impl`` (``fsdp_gather``, ``expert_tp``) differ only in how the
-reference shards the expert weights, so both compute the same thing here.
+reference shards the expert weights, so both compute the same thing there.
+
+On a mesh (the operands are ``DTensor``s) the ``fsdp_gather`` layout runs
+as the reference's ``shard_map`` region, a ``local_map`` over the same
+specs: tokens are batch-sharded over (pod, data) and replicated over
+``model``; each model rank holds E / model experts, routes its tokens to
+them into buffers whose capacity comes from its *local* token count, and
+the partial outputs are summed over ``model``.  The router and the expert
+weights, FSDP-sharded over ``data`` on their embed axis, are all-gathered
+over ``data`` on entry (the redistribute at the region's boundary; its
+backward reduce-scatters their gradients).  ``expert_tp`` is the
+reference's inference layout and waits for sharded serving.
 
 Routing (:func:`_route`): router logits in f32, softmax, top-k (weights
 renormalized under ``norm_topk``), then each (token, k) assignment, in the
@@ -20,8 +30,10 @@ from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.models.common import Config, P_
+from repro_torch.models.common import (Config, P_, local_call, mesh_sizes,
+                                      resolve_spec)
 
 MOE_IMPLS = ("fsdp_gather", "expert_tp")
 
@@ -30,10 +42,10 @@ def moe_specs(cfg: Config, n_layers: int) -> Dict[str, P_]:
     d, e, f = cfg.d_model, cfg.n_experts, cfg.d_expert_ff
     L = (n_layers,)
     return {
-        "router": P_(L + (d, e)),
-        "wg": P_(L + (e, d, f)),
-        "wu": P_(L + (e, d, f)),
-        "wd": P_(L + (e, f, d)),
+        "router": P_(L + (d, e), ("layers", "embed", "expert")),
+        "wg": P_(L + (e, d, f), ("layers", "expert", "embed", "expert_mlp")),
+        "wu": P_(L + (e, d, f), ("layers", "expert", "embed", "expert_mlp")),
+        "wd": P_(L + (e, f, d), ("layers", "expert", "expert_mlp", "embed")),
     }
 
 
@@ -72,32 +84,87 @@ def _route(xf: torch.Tensor, router: torch.Tensor, cfg: Config,
                  torch.where(keep, rank, 0), keep)
 
 
-def moe_apply(x: torch.Tensor, p, cfg: Config) -> torch.Tensor:
-    """x: (B, S, D); p holds this layer's ``router``, ``wg``, ``wu``,
-    ``wd``.  The expert weights are cast to x's dtype."""
-    if cfg.moe_impl not in MOE_IMPLS:
-        raise ValueError(f"moe_impl {cfg.moe_impl!r}: expected one of "
-                         f"{MOE_IMPLS}")
+def _moe_local(x, router, wg, wu, wd, cfg: Config, e0: int = 0,
+               e_loc: int = None) -> torch.Tensor:
+    """The experts ``e0 .. e0 + e_loc`` (all of them by default) on the
+    tokens x (B, S, D): each token's sum of its kept assignments to those
+    experts, weighted by its routing weights.  ``wg``/``wu``/``wd`` hold
+    those experts' weights; the capacity comes from x's token count."""
     bsz, s, d = x.shape
-    t, k, e = bsz * s, cfg.top_k, cfg.n_experts
+    t, k = bsz * s, cfg.top_k
+    e_loc = cfg.n_experts if e_loc is None else e_loc
     capacity = _capacity(t, cfg)
     xf = x.reshape(t, d)
-    r = _route(xf, p["router"], cfg, capacity)
+    r = _route(xf, router, cfg, capacity)
+    # an assignment's slot in its expert's buffer does not depend on the
+    # other experts, so the kept local ones are the global route's
+    keep = r.keep & (r.slot_e >= e0) & (r.slot_e < e0 + e_loc)
+    slot_e = torch.where(keep, r.slot_e - e0, e_loc)
+    slot_c = torch.where(keep, r.slot_c, 0)
     tok = torch.arange(t * k, device=x.device) // k
 
-    buf = torch.zeros((e + 1, capacity, d), dtype=x.dtype, device=x.device)
-    buf[r.slot_e, r.slot_c] = xf[tok]
-    act = buf[:e]
-    g = torch.bmm(act, p["wg"].to(x.dtype))
-    u = torch.bmm(act, p["wu"].to(x.dtype))
-    y_buf = torch.bmm(F.silu(g) * u, p["wd"].to(x.dtype))
+    buf = torch.zeros((e_loc + 1, capacity, d), dtype=x.dtype,
+                      device=x.device)
+    buf[slot_e, slot_c] = xf[tok]
+    act = buf[:e_loc]
+    g = torch.bmm(act, wg.to(x.dtype))
+    u = torch.bmm(act, wu.to(x.dtype))
+    y_buf = torch.bmm(F.silu(g) * u, wd.to(x.dtype))
     y_buf = torch.cat([y_buf, y_buf.new_zeros((1, capacity, d))])
 
-    vals = y_buf[r.slot_e, r.slot_c] * r.keep[:, None]
+    vals = y_buf[slot_e, slot_c] * keep[:, None]
     vals = vals * r.weights.reshape(-1)[:, None].to(vals.dtype)
     # each token's k assignments are consecutive: the scatter-add over
     # tokens is a sum over k
     y = vals.reshape(t, k, d).sum(dim=1)
     if cfg.moe_psum_dtype == "bf16":
         y = y.to(torch.bfloat16)
-    return y.reshape(bsz, s, d).to(x.dtype)
+    return y.reshape(bsz, s, d)
+
+
+def moe_apply(x: torch.Tensor, p, cfg: Config) -> torch.Tensor:
+    """x: (B, S, D); p holds this layer's ``router``, ``wg``, ``wu``,
+    ``wd``.  The expert weights are cast to x's dtype.  On a mesh (x a
+    ``DTensor``) see the module docstring."""
+    if cfg.moe_impl not in MOE_IMPLS:
+        raise ValueError(f"moe_impl {cfg.moe_impl!r}: expected one of "
+                         f"{MOE_IMPLS}")
+    if isinstance(x, DTensor):
+        return _moe_sharded(x, p, cfg)
+    return _moe_local(x, p["router"], p["wg"], p["wu"], p["wd"],
+                      cfg).to(x.dtype)
+
+
+def _moe_sharded(x, p, cfg: Config):
+    """The reference's ``shard_map`` MoE (``fsdp_gather``) on x's mesh:
+    x batch-sharded over (pod, data) where its batch divides, replicated
+    over model; the router whole; the experts split over model (where
+    their number divides).  The outputs are partial over model, and the
+    gradients of x, the router and the experts partial where
+    ``common.local_call`` makes them so."""
+    if cfg.moe_impl == "expert_tp":
+        raise NotImplementedError(
+            "moe_impl 'expert_tp' is the reference's inference layout; on a "
+            "mesh it waits for sharded serving (ROADMAP.md)")
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    model = mesh_sizes(mesh).get("model", 1)
+    has_model = model > 1 and cfg.n_experts % model == 0
+    e_loc = cfg.n_experts // model if has_model else cfg.n_experts
+    e0 = mesh.get_local_rank("model") * e_loc if has_model else 0
+    split = names.index("model") if has_model else None
+    x_in = resolve_spec(x.shape, ("batch", None, None), mesh)
+    whole = (Replicate(),) * mesh.ndim
+    expert = tuple(Shard(0) if i == split else Replicate()
+                   for i in range(mesh.ndim))
+    out = [Partial() if i == split else pl for i, pl in enumerate(x_in)]
+
+    def local(x, router, wg, wu, wd):
+        return _moe_local(x, router, wg, wu, wd, cfg, e0, e_loc)
+
+    y = local_call(local, (x.redistribute(mesh, x_in),
+                           p["router"].redistribute(mesh, whole),
+                           *(p[k].redistribute(mesh, expert)
+                             for k in ("wg", "wu", "wd"))), out)
+    # the sum over model (in bf16 under moe_psum_dtype "bf16")
+    return y.redistribute(mesh, x_in).to(x.dtype)

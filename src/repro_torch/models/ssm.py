@@ -15,7 +15,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
-from repro_torch.models.common import Config, P_, rms_norm
+from repro_torch.models.common import (Config, P_, constrain, local_call,
+                                      rms_norm, split_last, unshard)
 
 
 def ssm_specs(cfg: Config, n_layers: int) -> Dict[str, P_]:
@@ -24,28 +25,36 @@ def ssm_specs(cfg: Config, n_layers: int) -> Dict[str, P_]:
     conv_dim = din + 2 * g * n
     L = (n_layers,)
     return {
-        "wz": P_(L + (d, din)),
-        "wx": P_(L + (d, din)),
-        "wb": P_(L + (d, g * n)),
-        "wc": P_(L + (d, g * n)),
-        "wdt": P_(L + (d, h)),
-        "dt_bias": P_(L + (h,), init="zeros"),
-        "a_log": P_(L + (h,), init="zeros"),
-        "d_skip": P_(L + (h,), init="ones"),
-        "conv_w": P_(L + (cfg.conv_width, conv_dim)),
-        "norm": P_(L + (din,), init="ones"),
-        "wo": P_(L + (din, d)),
+        "wz": P_(L + (d, din), ("layers", "embed", "ssm_inner")),
+        "wx": P_(L + (d, din), ("layers", "embed", "ssm_inner")),
+        "wb": P_(L + (d, g * n), ("layers", "embed", "ssm_bc")),
+        "wc": P_(L + (d, g * n), ("layers", "embed", "ssm_bc")),
+        "wdt": P_(L + (d, h), ("layers", "embed", "ssm_heads")),
+        "dt_bias": P_(L + (h,), ("layers", "ssm_heads"), init="zeros"),
+        "a_log": P_(L + (h,), ("layers", "ssm_heads"), init="zeros"),
+        "d_skip": P_(L + (h,), ("layers", "ssm_heads"), init="ones"),
+        "conv_w": P_(L + (cfg.conv_width, conv_dim),
+                     ("layers", "conv", "ssm_inner")),
+        "norm": P_(L + (din,), ("layers", "ssm_inner"), init="ones"),
+        "wo": P_(L + (din, d), ("layers", "ssm_inner", "embed")),
     }
 
 
 def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (B, L, C), w: (W, C) -> causal depthwise conv via shifted adds."""
-    width = w.shape[0]
-    out = x * w[-1]
-    for i in range(1, width):
-        shifted = F.pad(x, (0, 0, i, 0))[:, :-i]
-        out = out + shifted * w[width - 1 - i]
-    return out
+    """x: (B, L, C), w: (W, C) -> causal depthwise conv via shifted adds.
+    Under a mesh it runs on each rank's batch shard (the shifts' ``pad``
+    has no usable ``DTensor`` rule in every release), the sequence,
+    channels and weights whole."""
+    def conv(x, w):
+        width = w.shape[0]
+        out = x * w[-1]
+        for i in range(1, width):
+            shifted = F.pad(x, (0, 0, i, 0))[:, :-i]
+            out = out + shifted * w[width - 1 - i]
+        return out
+
+    x, w = unshard(x, 1, 2), unshard(w, 0, 1)
+    return local_call(conv, (x, w), list(getattr(x, "placements", ())))
 
 
 def ssd_chunked(x, b, c, a, chunk: int = 128, return_state: bool = False):
@@ -74,11 +83,32 @@ def _split_proj(x, p, cfg: Config):
 
 
 def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
-    """(B, S, G, N) per-group B or C -> (B * heads, S, N), each group
+    """(B, S, G, N) per-group B or C -> (B, heads, S, N), each group
     repeated over its heads (the reference's ``jnp.repeat``)."""
     bsz, s, g, n = t.shape
     t = t.permute(0, 2, 1, 3)[:, :, None]
-    return t.expand(bsz, g, heads // g, s, n).reshape(bsz * heads, s, n)
+    return t.expand(bsz, g, heads // g, s, n).reshape(bsz, heads, s, n)
+
+
+def _ssd_heads(x, b, c, a, *, chunk: int, return_state: bool):
+    """The ``ssd`` site on (B, H, L, *) operands: x (B, H, L, P), b/c
+    (B, H, L, N), a (B, H, L) -> y (B, H, L, P) (and the final state
+    (B, H, N, P)).  Under a mesh it runs on each rank's (batch, head)
+    shards: the scan is independent per (batch, head)."""
+    def scan(x, b, c, a):
+        bsz, h, s, pdim = x.shape
+        n = b.shape[-1]
+        res = ops.ssd(x.reshape(bsz * h, s, pdim), b.reshape(bsz * h, s, n),
+                      c.reshape(bsz * h, s, n), a.reshape(bsz * h, s),
+                      chunk=chunk, return_state=return_state)
+        if return_state:
+            return (res[0].reshape(bsz, h, s, pdim),
+                    res[1].reshape(bsz, h, n, pdim))
+        return res.reshape(bsz, h, s, pdim)
+
+    out = list(getattr(x, "placements", ()))
+    return local_call(scan, (x, b, c, a),
+                      (out, out) if return_state else out)
 
 
 def ssm_apply(x, p, cfg: Config, chunk: int = None,
@@ -97,22 +127,25 @@ def ssm_apply(x, p, cfg: Config, chunk: int = None,
     xin, bp, cp = torch.split(xbc, [cfg.d_inner, g * n, g * n], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"])
     a = -torch.exp(p["a_log"].float()) * dt              # (B, S, H) log-decay
-    xh = xin.reshape(bsz, s, h, pdim)
+    xh = split_last(xin, h, pdim)
     xs = xh * dt[..., None].to(xh.dtype)
-    res = ops.ssd(xs.permute(0, 2, 1, 3).reshape(bsz * h, s, pdim),
-                  _heads(bp.reshape(bsz, s, g, n), h),
-                  _heads(cp.reshape(bsz, s, g, n), h),
-                  a.permute(0, 2, 1).reshape(bsz * h, s),
-                  chunk=chunk, return_state=return_state)
+    # the SSD operands head-sharded, as the reference constrains them
+    heads = ("batch", "act_heads", None, None)
+    res = _ssd_heads(constrain(xs.permute(0, 2, 1, 3), heads),
+                     constrain(_heads(split_last(bp, g, n), h), heads),
+                     constrain(_heads(split_last(cp, g, n), h), heads),
+                     constrain(a.permute(0, 2, 1), heads[:3]),
+                     chunk=chunk, return_state=return_state)
     y = res[0] if return_state else res
-    y = y.reshape(bsz, h, s, pdim).permute(0, 2, 1, 3)   # (B, S, H, P)
+    y = y.permute(0, 2, 1, 3)                             # (B, S, H, P)
     y = y + p["d_skip"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(bsz, s, cfg.d_inner)
-    y = rms_norm(y * F.silu(z), p["norm"])
+    y = constrain(rms_norm(y * F.silu(z), p["norm"]),
+                  ("batch", None, "act_mlp"))
     out = y @ p["wo"].to(x.dtype)
     if return_state:
         conv_state = xbc_raw[:, -(cfg.conv_width - 1):]  # (B, W-1, conv_dim)
-        return out, (res[1].reshape(bsz, h, n, pdim), conv_state)
+        return out, (res[1], conv_state)
     return out
 
 

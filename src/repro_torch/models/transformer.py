@@ -26,8 +26,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (Config, P_, cross_entropy, remat,
-                                      rms_norm, swiglu, take, unstack)
+from repro_torch.models.common import (ACT_EMBED, Config, P_, constrain,
+                                      cross_entropy, lookup, remat, rms_norm,
+                                      swiglu, take, unstack)
 
 
 def _check_family(cfg: Config, what: str) -> None:
@@ -44,7 +45,9 @@ def _check_family(cfg: Config, what: str) -> None:
 def mlp_specs(cfg: Config, n_layers: int) -> Dict[str, P_]:
     d, f = cfg.d_model, cfg.d_ff
     L = (n_layers,)
-    return {"wg": P_(L + (d, f)), "wu": P_(L + (d, f)), "wd": P_(L + (f, d))}
+    return {"wg": P_(L + (d, f), ("layers", "embed", "mlp")),
+            "wu": P_(L + (d, f), ("layers", "embed", "mlp")),
+            "wd": P_(L + (f, d), ("layers", "mlp", "embed"))}
 
 
 def block_specs(cfg: Config, n_layers: int) -> Dict[str, object]:
@@ -53,8 +56,8 @@ def block_specs(cfg: Config, n_layers: int) -> Dict[str, object]:
     experts (plus SwiGLU under ``moe_dense_residual``)."""
     L = (n_layers,)
     specs: Dict[str, object] = {
-        "ln1": P_(L + (cfg.d_model,), init="ones"),
-        "ln2": P_(L + (cfg.d_model,), init="ones"),
+        "ln1": P_(L + (cfg.d_model,), ("layers", "embed"), init="ones"),
+        "ln2": P_(L + (cfg.d_model,), ("layers", "embed"), init="ones"),
         "attn": att.attn_specs(cfg, n_layers),
     }
     if cfg.family == "moe":
@@ -67,17 +70,20 @@ def block_specs(cfg: Config, n_layers: int) -> Dict[str, object]:
 def lm_specs(cfg: Config) -> Dict[str, object]:
     _check_family(cfg, "lm_specs")
     specs: Dict[str, object] = {
-        "embed": P_((cfg.vocab, cfg.d_model)),
-        "final_norm": P_((cfg.d_model,), init="ones"),
-        "head": P_((cfg.d_model, cfg.vocab)),
+        "embed": P_((cfg.vocab, cfg.d_model), ("vocab", "embed")),
+        "final_norm": P_((cfg.d_model,), ("embed",), init="ones"),
+        "head": P_((cfg.d_model, cfg.vocab), ("embed", "vocab")),
     }
     if cfg.family == "ssm":
-        specs["ssm_ln"] = P_((cfg.n_layers, cfg.d_model), init="ones")
+        specs["ssm_ln"] = P_((cfg.n_layers, cfg.d_model), ("layers", "embed"),
+                             init="ones")
         specs["ssm"] = ssm_mod.ssm_specs(cfg, cfg.n_layers)
     elif cfg.family == "hybrid":
         n_groups, per = _groups(cfg)
-        specs["ssm_ln"] = P_((n_groups, per, cfg.d_model), init="ones")
-        specs["ssm"] = {k: P_((n_groups,) + s.shape, init=s.init)
+        specs["ssm_ln"] = P_((n_groups, per, cfg.d_model),
+                             ("layers", None, "embed"), init="ones")
+        specs["ssm"] = {k: P_((n_groups,) + s.shape, ("layers",) + s.logical,
+                             init=s.init)
                         for k, s in ssm_mod.ssm_specs(cfg, per).items()}
         specs["shared"] = block_specs(_dense(cfg), 1)   # one shared block
     else:
@@ -148,7 +154,7 @@ def _attn_block(x, lp, cfg: Config, positions, cache=None, idx=None):
         cache["k"][idx, :, :k.shape[1]] = k
         cache["v"][idx, :, :v.shape[1]] = v
     h = x + a_out
-    return h + _ffn(rms_norm(h, lp["ln2"]), lp, cfg)
+    return constrain(h + _ffn(rms_norm(h, lp["ln2"]), lp, cfg), ACT_EMBED)
 
 
 def _mamba_block(x, lp, cfg: Config, cache=None, idx=None):
@@ -157,11 +163,11 @@ def _mamba_block(x, lp, cfg: Config, cache=None, idx=None):
     res = ssm_mod.ssm_apply(rms_norm(x, lp["ln"]), lp["ssm"], cfg,
                             return_state=cache is not None)
     if cache is None:
-        return x + res
+        return constrain(x + res, ACT_EMBED)
     out, (h_f, conv) = res
     cache["ssm_h"][idx] = h_f
     cache["ssm_conv"][idx] = conv
-    return x + out
+    return constrain(x + out, ACT_EMBED)
 
 
 def _run_stack(x, params, cfg: Config, positions, cache=None):
@@ -189,7 +195,7 @@ def default_positions(cfg: Config, b: int, s: int, device=None):
 
 
 def _embed(params, cfg: Config, tokens):
-    return params["embed"][tokens].to(cfg.act_dtype)
+    return lookup(params["embed"], tokens).to(cfg.act_dtype)
 
 
 def _logits(x, params):
@@ -204,10 +210,12 @@ def forward(params, cfg: Config, tokens, positions=None,
     _check_family(cfg, "forward")
     x = (_embed(params, cfg, tokens) if embeddings is None
          else embeddings.to(cfg.act_dtype))
+    x = constrain(x, ACT_EMBED)
     b, s = x.shape[:2]
     if positions is None:
         positions = default_positions(cfg, b, s, x.device)
-    return _logits(_run_stack(x, params, cfg, positions), params)
+    return constrain(_logits(_run_stack(x, params, cfg, positions), params),
+                     ("batch", None, "vocab"))
 
 
 def loss_fn(params, cfg: Config, batch) -> torch.Tensor:
@@ -322,7 +330,7 @@ def prefill(params, cfg: Config, tokens, max_seq: int, positions=None,
     if s > max_seq:
         raise ValueError(f"prefill: a {s}-token prompt does not fit a "
                          f"{max_seq}-token cache")
-    x = _embed(params, cfg, tokens)
+    x = constrain(_embed(params, cfg, tokens), ACT_EMBED)
     if positions is None:
         positions = default_positions(cfg, b, s, x.device)
     cache = init_cache(cfg, b, max_seq, cache_dtype, x.device)

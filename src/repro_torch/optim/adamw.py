@@ -8,6 +8,11 @@ The update computes in each *moment*'s dtype: float32 moments by default,
 ``moment_dtype=torch.float64`` in :func:`adamw_init` for full-precision
 optimization (the adam optimizer of
 :mod:`repro_torch.core.vqe` runs it in float64).
+
+On a mesh the leaves are ``DTensor``s, each gradient and moment placed as
+its parameter (ZeRO-style: the moments are as distributed as the
+parameters).  The clipping norm is that of the whole gradient, and the
+elementwise update runs on each rank's local shards.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import dataclasses
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 
 # A donated update (see adamw_update) writes a leaf in slices of at most
@@ -56,25 +62,51 @@ def _like(tree, leaves):
     return rebuild(tree)
 
 
+def _local(t):
+    """A ``DTensor``'s local shard; any other tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _placed_as(like, t):
+    """``t``, a local shard, as a ``DTensor`` placed as ``like`` where
+    ``like`` is one; else ``t``."""
+    if not isinstance(like, DTensor):
+        return t
+    return DTensor.from_local(t, like.device_mesh, like.placements,
+                              shape=like.shape, stride=like.stride())
+
+
 def adamw_init(params, moment_dtype=torch.float32) -> Dict[str, Any]:
-    """Zero moments of ``moment_dtype`` beside each parameter, and a zero
-    int32 step count.  On ``meta`` parameters this is the reference's
-    ``abstract_opt_state``: shapes and dtypes, nothing allocated."""
-    def zeros():
-        return _like(params, [torch.zeros(p.shape, dtype=moment_dtype,
-                                          device=p.device)
-                              for p in _leaves(params)])
+    """Zero moments of ``moment_dtype`` beside each parameter (placed as it
+    on a mesh), and a zero int32 step count (replicated on a mesh).  On
+    ``meta`` parameters this is the reference's ``abstract_opt_state``:
+    shapes and dtypes, nothing allocated."""
+    def zeros(p):
+        if isinstance(p, DTensor):
+            return torch.zeros_like(p, dtype=moment_dtype)
+        return torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
+
     first = _leaves(params)[0]
-    return {"mu": zeros(), "nu": zeros(),
-            "count": torch.zeros((), dtype=torch.int32, device=first.device)}
+    count = torch.zeros((), dtype=torch.int32, device=first.device)
+    if isinstance(first, DTensor):
+        mesh = first.device_mesh
+        count = DTensor.from_local(
+            torch.zeros((), dtype=torch.int32, device=first.to_local().device),
+            mesh, [Replicate()] * mesh.ndim)
+    return {"mu": _like(params, [zeros(p) for p in _leaves(params)]),
+            "nu": _like(params, [zeros(p) for p in _leaves(params)]),
+            "count": count}
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, each promoted to at least
-    float32 (never truncated: float64 gradients keep a float64 norm)."""
-    sq = [torch.sum(torch.square(
-        x.to(torch.promote_types(x.dtype, torch.float32))))
-        for x in _leaves(tree)]
+    float32 (never truncated: float64 gradients keep a float64 norm).  A
+    ``DTensor`` leaf counts whole, as on one device."""
+    sq = []
+    for x in _leaves(tree):
+        s = torch.sum(torch.square(
+            x.to(torch.promote_types(x.dtype, torch.float32))))
+        sq.append(s.full_tensor() if isinstance(s, DTensor) else s)
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
@@ -89,11 +121,14 @@ def adamw_update(grads, state, params, cfg: OptConfig, lr=None,
     ``DONATE_SLICE_ELEMENTS`` along the leading axis at a time, and the
     returned trees are ``params`` and ``state``'s own, so an update holds
     the temporaries of one slice, not a second copy of the parameters and
-    moments (Qwen3-4B's stacked MLP weights are 3.3 GiB of f32 each)."""
+    moments (Qwen3-4B's stacked MLP weights are 3.3 GiB of f32 each).
+
+    ``DTensor`` leaves (each gradient and moment placed as its parameter)
+    are updated on their local shards and come back placed as before."""
     lr = cfg.lr if lr is None else lr
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    count = state["count"] + 1
+    count = _local(state["count"]) + 1
 
     def update(g, m, v, p):
         dt = m.dtype
@@ -108,13 +143,14 @@ def adamw_update(grads, state, params, cfg: OptConfig, lr=None,
         return p_new.to(p.dtype), m_new, v_new
 
     new_p, new_m, new_v = [], [], []
-    for leaf in zip(_leaves(grads), _leaves(state["mu"]),
-                    _leaves(state["nu"]), _leaves(params)):
+    for placed in zip(_leaves(grads), _leaves(state["mu"]),
+                      _leaves(state["nu"]), _leaves(params)):
+        leaf = [_local(t) for t in placed]
         if not donate:
             p_new, m_new, v_new = update(*leaf)
-            new_p.append(p_new)
-            new_m.append(m_new)
-            new_v.append(v_new)
+            new_p.append(_placed_as(placed[3], p_new))
+            new_m.append(_placed_as(placed[1], m_new))
+            new_v.append(_placed_as(placed[2], v_new))
             continue
         p = leaf[3]
         rows = (max(1, DONATE_SLICE_ELEMENTS * p.shape[0] // p.numel())
@@ -125,6 +161,7 @@ def adamw_update(grads, state, params, cfg: OptConfig, lr=None,
             p.copy_(p_new)
             m.copy_(m_new)
             v.copy_(v_new)
+    count = _placed_as(state["count"], count)
     if donate:
         state["count"] = count
         return params, state, {"grad_norm": gnorm}
