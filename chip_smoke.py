@@ -99,7 +99,7 @@ within twice the loss's own bf16 floor, and one profiled step with plain
 attention's share of its device time; one f32 step of every architecture's
 smoke config on the card against the same step on the CPU; and the
 launcher killed with ``os._exit(42)`` and resumed in subprocesses, bit for
-bit.  Last, sharded training on ``torch.distributed`` (``train_mesh``
+bit.  Then sharded training on ``torch.distributed`` (``train_mesh``
 phase): the Qwen3-4B step on a (1, 1) ``DeviceMesh`` of a world-size-1
 NCCL group against the one-device step (leaves bit for bit expected, the
 first differing one printed), each step's time and peak, and
@@ -108,16 +108,23 @@ with four cards visible it starts one rank per card and runs Qwen3-4B on
 (data 2, model 2) against the one-card loss (per-leaf update norms,
 s/step, tokens/s, peak per card, NCCL's share of a profiled step), the
 compressed step on (pod 2, data 1, model 2) and Qwen3-30B-A3B's first 4
-layers on (data 1, model 4).  Every profiled trace must be whole
-(``trace_complete``: each kernel launch the runtime recorded has its
-device kernel; pad launches at both ends absorb the records the profiler
-drops at a trace's edges), or is
-taken again, and after three incomplete traces the run fails (the
-four-card profile of ``train_mesh`` is one plain trace a rank: a retake
-on one rank alone would stall the others).  ``python3 chip_smoke.py
-train`` (or ``kernels``, ``wrappers``, ``lm_kernels``, ``ite``, ``vqe``,
-``distributed``, ``spmd``, ``train_mesh``) runs those phases alone
-and prints no result line.  Each phase
+layers on (data 1, model 4).  Then sharded serving (``serve_mesh``
+phase): Qwen3-4B, Zamba2-2.7B and Whisper-large-v3 at full size on a
+(1, 1) ``DeviceMesh`` (weights from the sharded draw, DTensor caches)
+against ``mesh=None``, every logit and cache entry bit for bit; with four
+cards one rank per card serves Qwen2-VL-72B at 16 layers in f32 on
+(data 1, model 4) against card 0, at all 80 layers in bf16 (a prefill,
+64 greedy steps, the continuation check) and Qwen3-30B-A3B at 48 layers
+on (data 2, model 2) in both MoE layouts.  Every profiled trace must be
+whole (``trace_complete``: each kernel launch the runtime recorded has
+its device kernel; pad launches at both ends absorb the records the
+profiler drops at a trace's edges), or is taken again, and after three
+incomplete traces the run fails (the four-card profiles of
+``train_mesh`` and ``serve_mesh`` are one plain trace a rank: a retake on
+one rank alone would stall the others).  ``python3 chip_smoke.py train``
+(or ``kernels``, ``wrappers``, ``lm_kernels``, ``ite``, ``vqe``,
+``distributed``, ``spmd``, ``train_mesh``, ``serve_mesh``) runs those
+phases alone and prints no result line.  Each phase
 prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
@@ -508,6 +515,34 @@ TOL_COMPRESSED_GRAD = 0.5
 # step's: measured 2.43e-4 (embed), the fault 0.255 (embed: rows of
 # tokens absent from its half of the batch get no gradient step).
 TOL_MESH_UPDATE_NORM = 1e-2
+
+
+# Sharded LM serving (serve_mesh phase).  One card: each of SERVE_MESH_ARCHS
+# at full width and depth on a (1, 1) DeviceMesh of a world-size-1 NCCL
+# group against mesh=None from the same bf16 weights (drawn on the mesh by
+# the sharded draw): a LM_BATCH x LM_PROMPT prefill through the kernels
+# and SERVE_MESH_STEPS teacher-forced decode steps (the encdec: encode
+# and fill the cross K/V), every logit and cache entry bit for bit.  Four
+# cards, one rank per card: SERVE_MESH_VL at SERVE_MESH_VL_LAYERS layers on
+# (data 1, model 4), f32 activations, its prefill and SERVE_MESH_VL_STEPS
+# decode steps within TOL_SERVE_MESH_F32 (relative) of the one-card run;
+# at all its layers in bf16, a prefill and LM_DECODE greedy steps, and
+# prefill + decode against the longer prefill, printed in bf16 and held
+# to TOL_DECODE in f32 (the same weights read by f32 activations); then
+# SERVE_MESH_MOE at all its layers on (data 2, model 2), SERVE_MESH_STEPS
+# decode steps from one prefill in each MoE layout.
+SERVE_MESH_ARCHS = ("qwen3-4b", "zamba2-2.7b", "whisper-large-v3")
+SERVE_MESH_STEPS = 16
+SERVE_MESH_VL = "qwen2-vl-72b"
+SERVE_MESH_VL_LAYERS = 16
+SERVE_MESH_VL_STEPS = 8
+TOL_SERVE_MESH_F32 = 1e-4
+SERVE_MESH_MOE = "qwen3-moe-30b-a3b"
+# The two MoE layouts' bf16 decode logits: the expert FFN's partial sums
+# over data and the route near-ties they flip differ; a regression bound
+# (the lm_serve bf16 checks' cap), the gap and the routes that differ
+# printed.
+TOL_SERVE_MESH_LAYOUTS = 0.1
 
 
 class CheckFailed(Exception):
@@ -4835,7 +4870,7 @@ def _one_card_steps(torch, batch):
     gc.collect()
     torch.cuda.empty_cache()
 
-    params = sharded.shard(sharded.init(SEED))
+    params = sharded.init(SEED)
     opt = adamw_init(params)
     dtokens = sharded.shard_batch(tokens)
     (params, opt, m), s1, peak = _timed_step(
@@ -4883,7 +4918,7 @@ def _compressed_vs_plain(torch, mesh_shape, fault):
     cfg = get(MESH_COMPRESSED_ARCH)
     bundle = build(cfg, OptConfig(lr=TRAIN_LR),
                    mesh=make_device_mesh(mesh_shape))
-    params = bundle.shard(bundle.init(SEED))
+    params = bundle.init(SEED)
     opt = adamw_init(params)
     tokens = bundle.shard_batch(_batch_of(torch, cfg, TRAIN_BATCH))
     (cnew, copt, err, cm), c_s, _ = _timed_step(
@@ -5110,7 +5145,7 @@ def _mesh_rank(info):
     # TRAIN_ARCH on (data 2, model 2), the one-card global batch
     cfg = get(TRAIN_ARCH)
     bundle = build(cfg, OptConfig(lr=TRAIN_LR), mesh=make_device_mesh((2, 2)))
-    params = bundle.shard(bundle.init(SEED))
+    params = bundle.init(SEED)
     opt = adamw_init(params)
     full = _batch_of(torch, cfg, info["batch"])
     # the planted fault: the gradient of data rank 0's tokens alone
@@ -5207,7 +5242,7 @@ def _mesh_rank(info):
     bundle = build(cfg, OptConfig(lr=TRAIN_LR), mesh=make_device_mesh((1, 4)))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    loss, dropped = _moe_step(torch, bundle, bundle.shard(bundle.init(SEED)))
+    loss, dropped = _moe_step(torch, bundle, bundle.init(SEED))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     peak = peaks()
@@ -5266,6 +5301,490 @@ def phase_train_mesh(torch, np):
           "seconds": time.perf_counter() - t0})
     check(not failures, "; ".join(failures))
 
+# ---------------------------------------------------------------------------
+# Sharded LM serving (serve_mesh phase)
+# ---------------------------------------------------------------------------
+
+def _whole(t):
+    """A DTensor's full tensor (a plain tensor as it is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _serve_tokens(torch, np, cfg, steps):
+    """(LM_BATCH x LM_PROMPT prompt, LM_BATCH x steps teacher tokens) on
+    the card, from SEED."""
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(LM_BATCH, LM_PROMPT + steps))).cuda()
+    return tokens[:, :LM_PROMPT], tokens[:, LM_PROMPT:]
+
+
+def _serve_run(torch, np, bundle, params, steps):
+    """``bundle``'s served run at full width: a LM_BATCH x LM_PROMPT
+    prefill through the kernels (the encdec: encode LM_BATCH x enc_frames
+    frames and fill every layer's cross K/V in an ENC_CONTEXT cache) and
+    ``steps`` teacher-forced decode steps.  Returns (logits list, cache,
+    timings and peak, flash and SSD launches of the run)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import encdec as E
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import cross_kv
+    from repro_torch.models.common import assign, slot, unstack
+    cfg = bundle.cfg
+    prompt, teacher = _serve_tokens(torch, np, cfg, steps)
+    flash_attention.launches = ssd_scan.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits, info = [], {}
+    with torch.no_grad(), sites_in("kernel"):
+        t0 = time.perf_counter()
+        if cfg.family == "encdec":
+            frames = np.random.default_rng(SEED).standard_normal(
+                (LM_BATCH, cfg.enc_frames, cfg.d_model))
+            frames = torch.from_numpy(frames.astype(np.float32)).cuda()
+            enc = bundle.encode_step(params, frames)
+            cache = E.init_cache(cfg, LM_BATCH, ENC_CONTEXT, mesh=bundle.mesh)
+            for i, lp in enumerate(unstack(params["dec"])):
+                k, v = cross_kv(enc, lp["xattn"], cfg)
+                assign(slot(cache["xk"], i), k)
+                assign(slot(cache["xv"], i), v)
+            del enc
+        else:
+            first, cache = T.prefill(params, cfg, prompt,
+                                     LM_PROMPT + steps)
+            logits.append(first)
+        torch.cuda.synchronize()
+        info["prefill_s"] = time.perf_counter() - t0
+        info["prefill_launches"] = {
+            "flash_attention": flash_attention.launches,
+            "ssd_scan": ssd_scan.launches}
+        t0 = time.perf_counter()
+        for i in range(steps):
+            out, cache = bundle.serve_step(params, cache, teacher[:, i:i + 1])
+            logits.append(out)
+        torch.cuda.synchronize()
+    info["decode_ms_per_step"] = (time.perf_counter() - t0) / steps * 1e3
+    info["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    info["launches"] = {"flash_attention": flash_attention.launches,
+                        "ssd_scan": ssd_scan.launches}
+    return logits, cache, info
+
+
+def serve_mesh_one_card(torch, np, failures):
+    """Each of SERVE_MESH_ARCHS served on a (1, 1) DeviceMesh against the
+    mesh=None run: logits and cache entries bit for bit (the first
+    differing one printed), prefill s, decode ms a step and peaks of both.
+    Returns the kernels' launches of the mesh runs."""
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.model import build
+
+    _join_single_rank(torch)
+    mesh = make_device_mesh((1, 1))
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+    for arch in SERVE_MESH_ARCHS:
+        cfg = get(arch)
+        line = {"phase": "serve_mesh", "part": "one_card", "arch": arch,
+                "mesh": [1, 1], "axes": ["data", "model"], "backend": "nccl",
+                "world_size": 1, "batch": LM_BATCH, "steps": SERVE_MESH_STEPS,
+                "nvidia_smi": nvidia_smi_line()}
+        line["prompt" if cfg.family != "encdec" else "frames"] = (
+            LM_PROMPT if cfg.family != "encdec" else cfg.enc_frames)
+        plain = build(cfg)
+        params = plain.init(SEED)
+        want, cache, line["mesh_none"] = _serve_run(
+            torch, np, plain, params, SERVE_MESH_STEPS)
+        want = [t.cpu() for t in want]
+        cache = {k: v.cpu() for k, v in cache.items() if k != "index"}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        sharded = build(cfg, mesh=mesh)
+        params = sharded.init(SEED)
+        got, dcache, line["mesh_1x1"] = _serve_run(
+            torch, np, sharded, params, SERVE_MESH_STEPS)
+        for k, v in line["mesh_1x1"]["launches"].items():
+            launches[k] += v
+        first, same = None, 0
+        pairs = [(f"logits/{i}", _local(g).cpu(), w)
+                 for i, (g, w) in enumerate(zip(got, want))]
+        pairs += [(f"cache/{k}", _local(dcache[k]).cpu(), w)
+                  for k, w in cache.items()]
+        for name, g, w in pairs:
+            if torch.equal(g, w):
+                same += 1
+            elif first is None:
+                first = {"leaf": name, "max_abs_gap": float(
+                    (g.float() - w.float()).abs().max())}
+        expect = (served_launches(cfg) if cfg.family != "encdec" else
+                  {"flash_attention": cfg.n_enc_layers, "ssd_scan": 0})
+        per_step = cfg.n_layers if cfg.family == "encdec" else 0
+        line["expected_prefill_launches"] = expect
+        line["bitwise"] = [same, len(pairs)]
+        line["first_differing"] = first
+        line["finite"] = bool(all(torch.isfinite(w).all() for w in want))
+        emit(line)
+        hold(failures, same == len(pairs) and line["finite"]
+             and line["mesh_1x1"]["prefill_launches"] == expect
+             and line["mesh_none"]["prefill_launches"] == expect
+             and line["mesh_1x1"]["launches"]["flash_attention"]
+             == expect["flash_attention"] + per_step * SERVE_MESH_STEPS,
+             f"serve_mesh {arch}: (1, 1) against mesh=None: {same} of "
+             f"{len(pairs)} bit for bit (first differing: {first}), "
+             f"prefill launches {line['mesh_1x1']['prefill_launches']} and "
+             f"{line['mesh_none']['prefill_launches']} (expected {expect}), "
+             f"in all {line['mesh_1x1']['launches']}")
+        del params, got, dcache, want, cache, plain, sharded
+        gc.collect()
+        torch.cuda.empty_cache()
+    _leave_group()
+    return launches
+
+
+def _vl_f32(torch, layers):
+    import dataclasses
+    from repro_torch.configs import get
+    return dataclasses.replace(get(SERVE_MESH_VL), n_layers=layers,
+                               act_dtype=torch.float32)
+
+
+def serve_mesh_vl_reference(torch, np):
+    """SERVE_MESH_VL at SERVE_MESH_VL_LAYERS layers with f32 activations
+    on card 0: the prefill's logits and SERVE_MESH_VL_STEPS greedy decode
+    steps' (f32 cache), as the four-card ranks compare with."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build
+    cfg = _vl_f32(torch, SERVE_MESH_VL_LAYERS)
+    bundle = build(cfg)
+    params = bundle.init(SEED)
+    prompt, _ = _serve_tokens(torch, np, cfg, 0)
+    max_seq = LM_PROMPT + SERVE_MESH_VL_STEPS
+    pos = vl_positions(torch, LM_BATCH, max_seq)
+    logits, tokens = [], []
+    with torch.no_grad(), sites_in("kernel"):
+        out, cache = T.prefill(params, cfg, prompt, max_seq,
+                               positions=pos[..., :LM_PROMPT],
+                               cache_dtype=torch.float32)
+        for i in range(SERVE_MESH_VL_STEPS):
+            logits.append(out.cpu())
+            tok = out.argmax(dim=-1, keepdim=True)
+            tokens.append(tok.cpu())
+            out, cache = bundle.serve_step(
+                params, cache, tok, pos[..., LM_PROMPT + i:LM_PROMPT + i + 1])
+        logits.append(out.cpu())
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"vl_logits": logits, "vl_tokens": tokens}
+
+
+def _clone_cache(cache):
+    """A copy of a decode cache, each DTensor entry placed as it was."""
+    from torch.distributed.tensor import DTensor
+    return {k: DTensor.from_local(v.to_local().clone(), v.device_mesh,
+                                  v.placements, shape=v.shape,
+                                  stride=v.stride())
+            if isinstance(v, DTensor) else v for k, v in cache.items()}
+
+
+def _expert_moves(params, mesh):
+    """Bytes each rank moves a decode step at the MoE region's boundary
+    (from the stored layout's shapes): fsdp_gather all-gathers the expert
+    weights' embed axis over data (receiving (data - 1) / data of the
+    layer's experts at full embed), expert_tp moves each weight from its
+    embed split to its FFN split over data (an all-to-all: (data - 1) /
+    data of the local shard leaves the rank)."""
+    data = mesh.size(mesh.mesh_dim_names.index("data"))
+    local = sum(params["layers"]["moe"][k].to_local().numel()
+                * params["layers"]["moe"][k].element_size()
+                for k in ("wg", "wu", "wd"))
+    return {"fsdp_gather": local * (data - 1),
+            "expert_tp": local * (data - 1) // data}
+
+
+def _serve_rank(info):
+    """One rank of serve_mesh's four-card part (spawned, one per card).
+    Every part runs and rank 0 prints its line; the rank fails at the end
+    if a check failed."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import init_distributed, make_device_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import build
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed("cuda")
+    lead = dist.get_rank() == 0
+    smi = nvidia_smi_line() if lead else None
+    failures = []
+
+    def gathered(x):
+        got = [None] * dist.get_world_size()
+        dist.all_gather_object(got, x)
+        return got
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    mesh14 = make_device_mesh((1, 4))
+    # (1) SERVE_MESH_VL, SERVE_MESH_VL_LAYERS layers, f32 activations,
+    # against the one-card run
+    cfg = _vl_f32(torch, SERVE_MESH_VL_LAYERS)
+    bundle = build(cfg, mesh=mesh14)
+    params = bundle.init(SEED)
+    prompt, _ = _serve_tokens(torch, np, cfg, 0)
+    max_seq = LM_PROMPT + SERVE_MESH_VL_STEPS
+    pos = vl_positions(torch, LM_BATCH, max_seq)
+    flash_attention.launches = 0
+    gaps = []
+    with torch.no_grad(), sites_in("kernel"):
+        out, cache = T.prefill(params, cfg, prompt, max_seq,
+                               positions=pos[..., :LM_PROMPT],
+                               cache_dtype=torch.float32)
+        launches = flash_attention.launches
+        for i in range(SERVE_MESH_VL_STEPS + 1):
+            got, want = _whole(out).float().cpu(), info["vl_logits"][i]
+            gaps.append(float((got - want).norm() / want.norm()))
+            if i == SERVE_MESH_VL_STEPS:
+                break
+            out, cache = bundle.serve_step(
+                params, cache, info["vl_tokens"][i].cuda(),
+                pos[..., LM_PROMPT + i:LM_PROMPT + i + 1])
+    if lead:
+        line = {"phase": "serve_mesh", "part": "vl_f32_four_cards",
+                "arch": SERVE_MESH_VL, "mesh": [1, 4],
+                "axes": ["data", "model"],
+                "reduced": {"n_layers": [80, SERVE_MESH_VL_LAYERS]},
+                "act_dtype": "f32", "batch": LM_BATCH, "prompt": LM_PROMPT,
+                "steps": SERVE_MESH_VL_STEPS, "rel_gaps": gaps,
+                "max_rel_gap": max(gaps), "bound": TOL_SERVE_MESH_F32,
+                "flash_launches_rank0": launches, "nvidia_smi": smi}
+        emit(line)
+        hold(failures, max(gaps) <= TOL_SERVE_MESH_F32
+             and launches == SERVE_MESH_VL_LAYERS,
+             f"serve_mesh: {SERVE_MESH_VL} f32 on (1, 4) against one card: "
+             f"{gaps}, {launches} flash launches")
+    del params, cache, out, bundle
+    free()
+
+    # (2) SERVE_MESH_VL at all its layers in bf16 on (1, 4)
+    cfg = get(SERVE_MESH_VL)
+    bundle = build(cfg, mesh=mesh14)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = gathered(torch.cuda.max_memory_allocated())
+    weights = sum(_local(t).numel() * _local(t).element_size()
+                  for _, t in tree_leaves(params))
+    # a decode step reads every weight but the embedding table
+    weights_read = weights - _local(params["embed"]).numel() * _local(
+        params["embed"]).element_size()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(LM_BATCH, LM_PROMPT))).cuda()
+    max_seq = LM_PROMPT + LM_DECODE
+    pos = vl_positions(torch, LM_BATCH, max_seq)
+    with torch.no_grad():
+        flash_attention.launches = 0
+        logits, cache, prefill_s = prefill_in(
+            torch, T, "kernel", params, cfg, tokens, max_seq,
+            positions=pos[..., :LM_PROMPT])
+        prefill_launches = gathered(flash_attention.launches)
+        want = _whole(logits)
+        finite = bool(torch.isfinite(want).all())
+        tok = want.argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(LM_PROMPT, max_seq):
+            out, cache = bundle.serve_step(params, cache, tok,
+                                           pos[..., i:i + 1])
+            out = _whole(out)
+            finite &= bool(torch.isfinite(out).all())
+            tok = out.argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) / LM_DECODE * 1e3
+        peak = gathered(torch.cuda.max_memory_allocated())
+        # the K/V a step reads, on average over the steps
+        kv_bytes = sum(_local(cache[k]).numel()
+                       * _local(cache[k]).element_size()
+                       for k in ("k", "v")) * (
+                           LM_PROMPT + (LM_DECODE + 1) / 2) / max_seq
+        del cache
+        free()
+        # prefill all but the last token and decode it, against the
+        # prefill of every token: in bf16 (printed: its rounding grows with
+        # depth, see LM_FLOOR_HELD) and, held to TOL_DECODE, in f32 (the
+        # same bf16 weights read by f32 activations, an f32 cache)
+        cont = {}
+        for label, c, b, dtype in (
+                ("bf16", cfg, bundle, torch.bfloat16),
+                ("f32", dataclasses.replace(cfg, act_dtype=torch.float32),
+                 None, torch.float32)):
+            b = b or build(c, mesh=mesh14)
+            ref = want
+            if label == "f32":
+                ref, _, _ = prefill_in(torch, T, "kernel", params, c, tokens,
+                                       LM_PROMPT, dtype,
+                                       positions=pos[..., :LM_PROMPT])
+                ref = _whole(ref)
+                free()
+            _, cache, _ = prefill_in(torch, T, "kernel", params, c,
+                                     tokens[:, :-1], LM_PROMPT, dtype,
+                                     positions=pos[..., :LM_PROMPT - 1])
+            got, _ = b.serve_step(params, cache, tokens[:, -1:],
+                                  pos[..., LM_PROMPT - 1:LM_PROMPT])
+            rel, excess = logits_gap(torch, _whole(got), ref)
+            cont[label] = {"rel": rel, "allclose_excess": excess}
+            del cache, got, ref
+            free()
+    if lead:
+        line = {"phase": "serve_mesh", "part": "vl_all_layers_four_cards",
+                "arch": SERVE_MESH_VL, "n_layers": cfg.n_layers,
+                "mesh": [1, 4], "axes": ["data", "model"], "batch": LM_BATCH,
+                "prompt": LM_PROMPT, "decode_tokens": LM_DECODE,
+                "weight_bytes_per_card": weights, "init_s": init_s,
+                "init_max_memory_allocated_per_card": init_peak,
+                "prefill_s": prefill_s, "decode_ms_per_step": decode_ms,
+                "decode_bound_ms": (weights_read + kv_bytes) / PEAK_BYTES
+                * 1e3, "kv_bytes_read_per_step_per_card": kv_bytes,
+                "max_memory_allocated_per_card": peak,
+                "flash_launches_per_prefill_by_rank": prefill_launches,
+                "finite": finite, "prefill_vs_decode": cont,
+                "nvidia_smi": smi}
+        emit(line)
+        hold(failures, finite and cont["f32"]["allclose_excess"] <= 0
+             and prefill_launches == [cfg.n_layers] * dist.get_world_size(),
+             f"serve_mesh: {SERVE_MESH_VL} at {cfg.n_layers} layers on "
+             f"(1, 4): finite {finite}, continuation {cont}, flash "
+             f"launches {prefill_launches}")
+    del params, logits, want, bundle
+    free()
+
+    # (3) SERVE_MESH_MOE at all its layers on (2, 2): decode in each layout
+    mesh22 = make_device_mesh((2, 2))
+    cfg = get(SERVE_MESH_MOE)
+    layouts = {impl: build(dataclasses.replace(cfg, moe_impl=impl),
+                           mesh=mesh22)
+               for impl in ("fsdp_gather", "expert_tp")}
+    params = layouts["fsdp_gather"].init(SEED)
+    prompt, teacher = _serve_tokens(torch, np, cfg, SERVE_MESH_STEPS + 1)
+    routes = []
+    with torch.no_grad():
+        with moe_routes(record=routes):
+            _, cache, moe_prefill_s = prefill_in(
+                torch, T, "kernel", params, cfg, prompt,
+                LM_PROMPT + SERVE_MESH_STEPS + 1)
+        dropped = 1 - sum(r.keep.sum().item() for r in routes) / sum(
+            r.keep.numel() for r in routes)
+        res = {}
+        for impl, b in layouts.items():
+            c = _clone_cache(cache)
+            recorded, logits = [], []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with moe_routes(record=recorded):
+                for i in range(SERVE_MESH_STEPS):
+                    out, c = b.serve_step(params, c, teacher[:, i:i + 1])
+                    logits.append(_whole(out).float())
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / SERVE_MESH_STEPS * 1e3
+            prof = _profiled_step(torch, lambda: b.serve_step(
+                params, c, teacher[:, -1:]))
+            res[impl] = {"logits": logits, "routes": recorded, "ms": ms,
+                         "profile": gathered(prof)}
+            del c
+            free()
+        # the experts each token chose: expert_tp routes the tokens of both
+        # data ranks, fsdp_gather this rank's
+        d = mesh22.get_local_rank("data")
+        differ = 0
+        for a, b in zip(res["fsdp_gather"]["routes"],
+                        res["expert_tp"]["routes"]):
+            k = cfg.top_k
+            mine = a.slot_e.reshape(-1, k)
+            theirs = b.slot_e.reshape(-1, k)[d * mine.shape[0]:
+                                             (d + 1) * mine.shape[0]]
+            differ += int((mine.sort(dim=-1).values
+                           != theirs.sort(dim=-1).values).sum())
+        differ = sum(gathered(differ))
+        gaps = [float((x - y).norm() / y.norm()) for x, y in zip(
+            res["expert_tp"]["logits"], res["fsdp_gather"]["logits"])]
+        moves = _expert_moves(params, mesh22)
+    if lead:
+        line = {"phase": "serve_mesh", "part": "moe_layouts_four_cards",
+                "arch": SERVE_MESH_MOE, "n_layers": cfg.n_layers,
+                "mesh": [2, 2], "axes": ["data", "model"], "batch": LM_BATCH,
+                "prompt": LM_PROMPT, "steps": SERVE_MESH_STEPS,
+                "prefill_s_fsdp_gather": moe_prefill_s,
+                "prefill_dropped_share": dropped,
+                "decode_ms_per_step": {k: v["ms"] for k, v in res.items()},
+                "logits_rel_gaps_expert_tp_vs_fsdp_gather": gaps,
+                "max_logits_rel_gap": max(gaps),
+                "routes_differing": differ,
+                "route_slots": SERVE_MESH_STEPS * LM_BATCH * cfg.top_k
+                * cfg.n_layers,
+                "boundary_bytes_per_rank_per_step": moves,
+                "profiled_step_by_rank": {k: v["profile"]
+                                          for k, v in res.items()},
+                "nccl_share_rank0": {k: v["profile"][0]["nccl_share"]
+                                     for k, v in res.items()},
+                "nvidia_smi": smi}
+        emit(line)
+        hold(failures, all(math.isfinite(g) for g in gaps)
+             and max(gaps) <= TOL_SERVE_MESH_LAYOUTS,
+             f"serve_mesh: {SERVE_MESH_MOE} expert_tp against fsdp_gather "
+             f"on (2, 2): {gaps} ({differ} routes differ)")
+    dist.barrier()
+    check(not failures, "; ".join(failures))
+
+
+def phase_serve_mesh(torch, np):
+    """Sharded LM serving on torch.distributed: the (1, 1) runs on card 0,
+    then, with MESH_CARDS cards or more, one rank per card (see
+    SERVE_MESH_* above).  Returns the kernels' launches of the (1, 1)
+    runs."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    failures = []
+    launches = serve_mesh_one_card(torch, np, failures)
+    cards = torch.cuda.device_count()
+    if cards < MESH_CARDS:
+        emit({"phase": "serve_mesh", "part": "four_cards",
+              "skipped": f"{cards} card(s) visible; the multi-rank part "
+              f"needs {MESH_CARDS}"})
+        check(not failures, "; ".join(failures))
+        return launches
+    t0 = time.perf_counter()
+    info = serve_mesh_vl_reference(torch, np)
+    emit({"phase": "serve_mesh", "part": "vl_f32_one_card",
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    try:
+        spawn_ranks(_serve_rank, MESH_CARDS, args=(info,))
+    except Exception as e:  # noqa: BLE001 — recorded, then raised below
+        failures.append(f"serve_mesh: the four-card ranks failed: "
+                        f"{str(e)[-2000:]}")
+    emit({"phase": "serve_mesh", "part": "ranks_done",
+          "seconds": time.perf_counter() - t0})
+    check(not failures, "; ".join(failures))
+    return launches
+
 
 def main() -> int:
     import numpy as np
@@ -5320,7 +5839,8 @@ def main() -> int:
                       "distributed": (phase_distributed, torch, np),
                       "spmd": (phase_spmd, torch, np),
                       "train": (phase_train, torch, np),
-                      "train_mesh": (phase_train_mesh, torch, np)}
+                      "train_mesh": (phase_train_mesh, torch, np),
+                      "serve_mesh": (phase_serve_mesh, torch, np)}
         unknown = [name for name in only if name not in standalone]
         if unknown:
             print(f"chip_smoke: unknown phases {unknown}; standalone "
@@ -5380,6 +5900,9 @@ def main() -> int:
         by_path["train"] = timed("train", phase_train, torch, np)
         torch.cuda.empty_cache()
         timed("train_mesh", phase_train_mesh, torch, np)
+        torch.cuda.empty_cache()
+        by_path["serve_mesh"] = timed("serve_mesh", phase_serve_mesh, torch,
+                                      np)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1

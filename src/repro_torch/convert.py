@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.core.peps import PEPS
 from repro_torch.device import resolve_device
+from repro_torch.models.common import distribute
 
 
 def peps_from_numpy(sites, log_scale: float = 0.0, *, dtype=None,
@@ -92,12 +93,19 @@ def lm_params_to_numpy(tree) -> Dict[str, Any]:
     return _array(tree)
 
 
-def cache_from_numpy(cache, *, device=None) -> Dict[str, Any]:
+def cache_from_numpy(cache, *, device=None, shardings=None) -> Dict[str, Any]:
     """Port decode cache from the reference's, for any family's keys: each
-    array keeps its dtype and ``index`` becomes a Python int."""
+    array keeps its dtype and ``index`` becomes a Python int.  With
+    ``shardings`` (``ModelBundle.cache_shardings``) each entry is a
+    ``DTensor`` placed by it, every rank keeping its block of the same
+    arrays."""
     device = resolve_device(device)
-    return {k: int(np.asarray(v)) if k == "index" else _tensor(v, None, device)
-            for k, v in cache.items()}
+    out = {k: int(np.asarray(v)) if k == "index" else _tensor(v, None, device)
+           for k, v in cache.items()}
+    if shardings is not None:
+        out.update({k: distribute(v, shardings[k]) for k, v in out.items()
+                    if k != "index"})
+    return out
 
 
 def cache_to_numpy(cache) -> Dict[str, Any]:

@@ -177,8 +177,6 @@ def _train(args):
         params, opt_state = restored["params"], restored["opt"]
     if params is None:
         params = bundle.init(args.seed, device)
-        if mesh is not None:
-            params = bundle.shard(params)
         opt_state = adamw_init(params)
 
     log_f = open(args.log_file, "a") if args.log_file and lead else None

@@ -16,6 +16,7 @@ is a ``DTensor`` and :func:`constrain` returns its input.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -71,42 +72,78 @@ SLICE_DRAW_BYTES = 2**30
 
 
 def init_params(specs, generator: torch.Generator, param_dtype=torch.float32,
-                device=None) -> Dict[str, Any]:
+                device=None, shardings=None) -> Dict[str, Any]:
     """Draw every leaf on ``device`` from ``generator`` (which must live on
     that device): normal * 0.02, small = normal * 0.006, zeros, ones.  The
     draws are f32, cast to the leaf's dtype; a leaf above
     ``WHOLE_DRAW_BYTES`` of f32 is drawn slice by slice along its leading
-    axis."""
+    axis.
+
+    With ``shardings`` (a tree of :class:`NamedSharding`, as
+    :func:`param_shardings` gives) each leaf is a ``DTensor`` holding only
+    this rank's shard: the draws are the same calls in the same order,
+    each rank keeps its own part of each, so the result is bit for bit
+    ``distribute(init_params(specs, ...), shardings)`` without the whole
+    tree on any rank."""
     device = resolve_device(device)
 
     def normal(shape, scale):
         return torch.randn(shape, generator=generator, dtype=torch.float32,
                            device=device) * scale
 
-    def draw(spec: P_):
+    def draw(spec: P_, sharding):
         dtype = spec.dtype or param_dtype
+        mine = (tuple(slice(None) for _ in spec.shape) if sharding is None
+                else local_slices(spec.shape, sharding.placements,
+                                  sharding.mesh))
+        local = tuple(len(range(*s.indices(n)))
+                      for s, n in zip(mine, spec.shape))
         if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=dtype, device=device)
+            return torch.zeros(local, dtype=dtype, device=device)
         if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=dtype, device=device)
+            return torch.ones(local, dtype=dtype, device=device)
         scale = 0.02 if spec.init == "normal" else 0.006
         if math.prod(spec.shape) * 4 <= WHOLE_DRAW_BYTES:
-            return normal(spec.shape, scale).to(dtype)
-        out = torch.empty(spec.shape, dtype=dtype, device=device)
+            return normal(spec.shape, scale)[mine].to(
+                dtype, copy=sharding is not None)
+        out = torch.empty(local, dtype=dtype, device=device)
         row = math.prod(spec.shape[1:]) * 4
         step = max(1, SLICE_DRAW_BYTES // row)
+        lo, hi, _ = mine[0].indices(spec.shape[0])
         for i in range(0, spec.shape[0], step):
             rows = min(step, spec.shape[0] - i)
-            out[i:i + rows] = normal((rows,) + spec.shape[1:], scale)
+            part = normal((rows,) + spec.shape[1:], scale)
+            a, b = max(i, lo), min(i + rows, hi)
+            if a < b:
+                out[a - lo:b - lo] = part[(slice(a - i, b - i),) + mine[1:]]
         return out
 
     out: Dict[str, Any] = {}
     for path, spec in tree_leaves(specs):
+        sharding = None
+        if shardings is not None:
+            sharding = shardings
+            for k in path:
+                sharding = sharding[k]
+        leaf = draw(spec, sharding)
+        if sharding is not None:
+            leaf = DTensor.from_local(leaf, sharding.mesh, sharding.placements,
+                                      shape=torch.Size(spec.shape),
+                                      stride=_contiguous(spec.shape))
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = draw(spec)
+        node[path[-1]] = leaf
     return out
+
+
+def _contiguous(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``."""
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
 
 
 def take(tree, index):
@@ -229,6 +266,134 @@ def distribute(tree, shardings):
         return {k: distribute(v, shardings[k]) for k, v in tree.items()}
     return distribute_tensor(tree, shardings.mesh, shardings.placements,
                              src_data_rank=None)
+
+
+def local_slices(shape: Sequence[int], placements, mesh) -> tuple:
+    """This rank's slice of each axis of a tensor of ``shape`` placed by
+    ``placements`` on ``mesh``: an axis split over several mesh axes is
+    split in mesh order (the first the outermost), evenly, as
+    :func:`resolve_spec` only splits axes that divide."""
+    out = []
+    for dim, n in enumerate(shape):
+        index, parts = 0, 1
+        for i, pl in enumerate(placements):
+            if pl.is_shard(dim):
+                size = mesh.size(i)
+                index = index * size + mesh.get_local_rank(i)
+                parts *= size
+        block = n // parts
+        out.append(slice(index * block, (index + 1) * block))
+    return tuple(out)
+
+
+def local_range(x, dim: int) -> Tuple[int, int]:
+    """[start, stop) of this rank's block of axis ``dim`` of ``x`` (the
+    whole axis for a plain tensor)."""
+    if not isinstance(x, DTensor):
+        return 0, x.shape[dim]
+    s = local_slices(x.shape, x.placements, x.device_mesh)[dim]
+    return s.start, s.stop
+
+
+def slot(x, index):
+    """``x[index]`` for an int or a tuple of ints on the leading axes.  On
+    a ``DTensor`` whose indexed axes are whole, a ``DTensor`` over the same
+    local storage (its placements moved down), so that writing into its
+    local tensor writes into ``x``'s."""
+    if not isinstance(x, DTensor):
+        return x[index]
+    index = index if isinstance(index, tuple) else (index,)
+    k = len(index)
+    if any(pl.is_shard() and pl.dim < k for pl in x.placements):
+        raise ValueError(f"slot: the indexed axes of a {tuple(x.shape)} "
+                         f"DTensor placed {tuple(x.placements)} are split")
+    placements = tuple(Shard(pl.dim - k) if pl.is_shard() else pl
+                       for pl in x.placements)
+    return DTensor.from_local(x.to_local()[index], x.device_mesh, placements,
+                              shape=x.shape[k:], stride=x.stride()[k:])
+
+
+def assign(dst, src) -> None:
+    """``dst[...] = src`` in place (cast to dst's dtype).  A ``DTensor``
+    ``dst`` takes ``src`` redistributed to its placements into its local
+    tensor: ``DTensor``'s own in-place indexing has no working rule in
+    every release."""
+    if not isinstance(dst, DTensor):
+        dst.copy_(src)
+        return
+    if tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.to_local().copy_(src.to_local())
+
+
+def replicating(x):
+    """``implicit_replication`` (plain tensors among ``DTensor`` operands
+    count as replicated) when ``x`` is a ``DTensor``, else a null
+    context."""
+    if not isinstance(x, DTensor):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def cache_shardings(specs, axes, mesh) -> Dict[str, NamedSharding]:
+    """The reference's ``ModelBundle.cache_shardings``: each cache entry of
+    ``specs`` (name -> spec with a ``shape``) placed by its logical
+    ``axes`` (name -> axis names) with two fallbacks.  A KV cache whose
+    ``kv_heads`` do not divide by ``model`` while its ``kv_seq`` does is
+    split along the sequence over ``model`` instead (flash-decode style:
+    the softmax statistics combined across ranks are small); a ``batch``
+    that does not divide by the batch axes is whole."""
+    sizes = mesh_sizes(mesh)
+    m = sizes.get("model", 1)
+    out = {}
+    for name, spec in specs.items():
+        logical = list(axes[name])
+        if "kv_heads" in logical and m > 1:
+            kv_i, seq_i = logical.index("kv_heads"), logical.index("kv_seq")
+            if spec.shape[kv_i] % m and spec.shape[seq_i] % m == 0:
+                logical[kv_i] = None
+                logical[seq_i] = "act_heads"      # -> 'model'
+        if "batch" in logical:
+            b_i = logical.index("batch")
+            if spec.shape[b_i] % _axes_size(mesh, batch_axes(mesh)):
+                logical[b_i] = None
+        out[name] = NamedSharding(mesh, resolve_spec(spec.shape, logical,
+                                                     mesh))
+    return out
+
+
+def zero_cache(specs, axes, device=None, mesh=None) -> Dict[str, Any]:
+    """A zero decode cache of ``specs`` (name -> spec with a ``shape`` and
+    a ``dtype``; ``index`` becomes the int 0) on ``device``; on ``mesh``,
+    each entry a ``DTensor`` placed by :func:`cache_shardings` of its
+    logical ``axes``, each rank allocating its own block."""
+    cache: Dict[str, Any] = {}
+    placed = None if mesh is None else cache_shardings(specs, axes, mesh)
+    device = resolve_device(device) if mesh is None else mesh_device(mesh)
+    for name, spec in specs.items():
+        if name == "index":
+            continue
+        if placed is None:
+            cache[name] = torch.zeros(spec.shape, dtype=spec.dtype,
+                                      device=device)
+            continue
+        ns = placed[name]
+        local = tuple(s.stop - s.start for s in local_slices(
+            spec.shape, ns.placements, mesh))
+        cache[name] = DTensor.from_local(
+            torch.zeros(local, dtype=spec.dtype, device=device), mesh,
+            ns.placements, shape=torch.Size(spec.shape),
+            stride=_contiguous(spec.shape))
+    cache["index"] = 0
+    return cache
+
+
+def mesh_device(mesh) -> torch.device:
+    """This rank's device of ``mesh``: its current card, or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 def batch_axes(mesh) -> Tuple[str, ...]:

@@ -17,18 +17,24 @@ with the reference.  Under ``cfg.remat`` each encoder and decoder layer
 of ``encode`` and ``decode_train`` is checkpointed, where the reference
 wraps its scan bodies in ``jax.checkpoint`` (the reference's own remat path
 raises ``NameError``: it names an undefined ``_ckpt_policy``).
+
+On a mesh the cache is placed by the reference's rules
+(:func:`cache_logical_axes`, ``common.cache_shardings``); a caller fills
+``xk``/``xv`` of layer ``i`` with ``common.assign(common.slot(cache["xk"],
+i), k)``, and :func:`decode_step` attends on each rank's block.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.device import resolve_device
 from repro_torch.models import attention as att
 from repro_torch.models.common import (ACT_EMBED, Config, P_, constrain,
-                                      cross_entropy, lookup, remat, rms_norm,
-                                      swiglu, take, unstack)
+                                      cross_entropy, lookup, remat,
+                                      replicating, rms_norm, slot, swiglu,
+                                      unstack, zero_cache)
 from repro_torch.models.transformer import CacheSpec, mlp_specs
 
 # learned decoder positions: the reference sizes them for its largest
@@ -79,10 +85,16 @@ def encode(params, cfg: Config, frames: torch.Tensor) -> torch.Tensor:
                                positions=None, causal=False, rope=False)
         return _mlp(h, lp)
 
-    x = constrain(frames.to(cfg.act_dtype), ACT_EMBED)
-    for lp in unstack(params["enc"]):
-        x = remat(layer, cfg)(x, lp)
-    return rms_norm(x, params["enc_norm"])
+    norm = params["enc_norm"]
+    if isinstance(norm, DTensor) and not isinstance(frames, DTensor):
+        # the same frames on every rank, split by the constraint below
+        frames = DTensor.from_local(frames, norm.device_mesh,
+                                    [Replicate()] * norm.device_mesh.ndim)
+    with replicating(norm):
+        x = constrain(frames.to(cfg.act_dtype), ACT_EMBED)
+        for lp in unstack(params["enc"]):
+            x = remat(layer, cfg)(x, lp)
+        return rms_norm(x, params["enc_norm"])
 
 
 def decode_train(params, cfg: Config, tokens, enc_out) -> torch.Tensor:
@@ -123,15 +135,19 @@ def init_cache_specs(cfg: Config, batch: int, max_seq: int,
             "index": CacheSpec((), torch.int32)}
 
 
+def cache_logical_axes(cfg: Config) -> Dict[str, tuple]:
+    """The reference's logical axes of each cache entry: self and cross
+    K/V alike, (layers, batch, kv_seq, kv_heads, head_dim)."""
+    kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return {"k": kv, "v": kv, "xk": kv, "xv": kv, "index": ()}
+
+
 def init_cache(cfg: Config, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device=None):
-    """A zero decode cache at position 0 (``xk``/``xv`` to be filled)."""
-    device = resolve_device(device)
-    cache = {name: torch.zeros(s.shape, dtype=s.dtype, device=device)
-             for name, s in init_cache_specs(cfg, batch, max_seq, dtype).items()
-             if name != "index"}
-    cache["index"] = 0
-    return cache
+               device=None, mesh=None):
+    """A zero decode cache at position 0 (``xk``/``xv`` to be filled); on
+    ``mesh``, ``DTensor``s placed by ``common.cache_shardings``."""
+    return zero_cache(init_cache_specs(cfg, batch, max_seq, dtype),
+                      cache_logical_axes(cfg), device, mesh)
 
 
 def decode_step(params, cfg: Config, cache, token, positions=None):
@@ -141,16 +157,17 @@ def decode_step(params, cfg: Config, cache, token, positions=None):
     the bundle's signature and unused: the decoder's positions are learned
     and taken at ``index``, as in the reference."""
     index = int(cache["index"])
-    x = params["embed"][token].to(cfg.act_dtype)
-    x = x + params["pos_dec"][index].to(x.dtype)
-    for i in range(cfg.n_layers):
-        lp = take(params["dec"], i)
-        a_out, _, _ = att.attn_decode(rms_norm(x, lp["ln1"]), lp["attn"], cfg,
-                                      cache["k"][i], cache["v"][i], index,
-                                      positions=None, rope=False)
-        h = x + a_out
-        h = h + att.cross_attn_apply(rms_norm(h, lp["ln_x"]), lp["xattn"],
-                                     cfg, cache["xk"][i].to(x.dtype),
-                                     cache["xv"][i].to(x.dtype))
-        x = _mlp(h, lp)
-    return _logits(x, params)[:, 0], dict(cache, index=index + 1)
+    with replicating(params["embed"]):
+        x = lookup(params["embed"], token).to(cfg.act_dtype)
+        x = constrain(x + params["pos_dec"][index].to(x.dtype), ACT_EMBED)
+        for i, lp in enumerate(unstack(params["dec"])):
+            a_out, _, _ = att.attn_decode(
+                rms_norm(x, lp["ln1"]), lp["attn"], cfg, slot(cache["k"], i),
+                slot(cache["v"], i), index, positions=None, rope=False)
+            h = x + a_out
+            h = h + att.cross_attn_apply(
+                rms_norm(h, lp["ln_x"]), lp["xattn"], cfg,
+                slot(cache["xk"], i).to(x.dtype),
+                slot(cache["xv"], i).to(x.dtype))
+            x = _mlp(h, lp)
+        return _logits(x, params)[:, 0], dict(cache, index=index + 1)

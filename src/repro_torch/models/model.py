@@ -16,10 +16,15 @@ rules (:meth:`ModelBundle.param_shardings`, :meth:`opt_shardings`,
 same ``train_step`` runs the SPMD program: every op on its shards, the
 collectives where the placements ask for them.  Without a mesh nothing is
 a ``DTensor`` and the step is the one-device step, bit for bit.
+
+Serving on a mesh: :meth:`ModelBundle.init` draws each rank's shard of
+the parameters alone (``common.init_params`` with shardings), the decode
+cache is placed by :meth:`ModelBundle.cache_shardings` (the reference's
+rules and fallbacks), and ``prefill_step``, ``encode_step`` and
+``serve_step`` take and return ``DTensor`` parameters and caches.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional
 
@@ -31,8 +36,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.common import (Config, NamedSharding, batch_axes,
-                                      distribute, init_params, mesh_sizes,
-                                      param_shardings, tree_leaves)
+                                      cache_shardings, distribute,
+                                      init_params, mesh_device, mesh_sizes,
+                                      param_shardings, replicating,
+                                      tree_leaves)
 from repro_torch.optim.adamw import OptConfig, adamw_init, adamw_update
 
 
@@ -78,10 +85,19 @@ class ModelBundle:
 
     def init(self, seed: int, device=None) -> Any:
         """Parameters drawn on ``device`` from a ``torch.Generator`` seeded
-        with ``seed``."""
-        device = resolve_device(device)
+        with ``seed``.  On a mesh, on this rank's device, each leaf a
+        ``DTensor`` of this rank's shard alone, bit for bit
+        ``distribute(init(seed), param_shardings())`` of the one-device
+        draw (each rank draws the whole stream and keeps its part)."""
+        if self.mesh is None:
+            device = resolve_device(device)
+            shardings = None
+        else:
+            device = mesh_device(self.mesh)
+            shardings = self.param_shardings()
         gen = torch.Generator(device=device).manual_seed(seed)
-        return init_params(self.specs, gen, self.cfg.param_dtype, device)
+        return init_params(self.specs, gen, self.cfg.param_dtype, device,
+                           shardings)
 
     def abstract_params(self) -> Any:
         """The parameter tree as ``meta`` tensors: shapes and dtypes, with
@@ -134,7 +150,8 @@ class ModelBundle:
     def shard(self, params):
         """A full parameter tree onto the mesh by :meth:`param_shardings`
         (see ``common.distribute``; an AdamW state goes by
-        ``distribute(state, bundle.opt_shardings())``)."""
+        ``distribute(state, bundle.opt_shardings())``).  :meth:`init` on a
+        mesh draws the parameters placed already."""
         return distribute(params, self.param_shardings())
 
     def shard_batch(self, batch):
@@ -166,7 +183,7 @@ class ModelBundle:
         default positions, RoPE's frequencies) count as replicated."""
         pairs = tree_leaves(params)
         leaves = [t.detach().requires_grad_() for _, t in pairs]
-        with torch.enable_grad(), self._replicating():
+        with torch.enable_grad(), replicating(leaves[0]):
             loss = self.loss_fn(_with_leaves(params, leaves), batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
@@ -176,12 +193,6 @@ class ModelBundle:
                      if g.placements != p.placements else g
                      for g, (_, p) in zip(grads, pairs)]
         return loss.detach(), _with_leaves(params, list(grads))
-
-    def _replicating(self):
-        if self.mesh is None:
-            return contextlib.nullcontext()
-        from torch.distributed.tensor.experimental import implicit_replication
-        return implicit_replication()
 
     def train_step(self, params, opt_state, batch, microbatches: int = 1,
                    donate: bool = False):
@@ -271,8 +282,19 @@ class ModelBundle:
     def cache_specs(self, batch: int, max_seq: int):
         return self._mod.init_cache_specs(self.cfg, batch, max_seq)
 
+    def cache_shardings(self, batch: int, max_seq: int):
+        """A :class:`NamedSharding` per cache entry (``index`` replicated),
+        by the reference's rules with its kv_seq and batch fallbacks
+        (``common.cache_shardings``)."""
+        return cache_shardings(self.cache_specs(batch, max_seq),
+                               self._mod.cache_logical_axes(self.cfg),
+                               self._need_mesh())
+
     def init_cache(self, batch: int, max_seq: int, device=None):
-        return self._mod.init_cache(self.cfg, batch, max_seq, device=device)
+        """A zero cache: on one device, or on the mesh placed by
+        :meth:`cache_shardings`."""
+        return self._mod.init_cache(self.cfg, batch, max_seq, device=device,
+                                    mesh=self.mesh)
 
     @property
     def _encdec(self) -> bool:

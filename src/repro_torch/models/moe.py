@@ -13,8 +13,20 @@ them into buffers whose capacity comes from its *local* token count, and
 the partial outputs are summed over ``model``.  The router and the expert
 weights, FSDP-sharded over ``data`` on their embed axis, are all-gathered
 over ``data`` on entry (the redistribute at the region's boundary; its
-backward reduce-scatters their gradients).  ``expert_tp`` is the
-reference's inference layout and waits for sharded serving.
+backward reduce-scatters their gradients).
+
+``expert_tp`` is the reference's inference layout: with a ``data`` axis
+that divides the model width and the expert FFN width, the experts' FFN
+axis is split over ``data`` (and the experts over ``model``), the tokens
+and the router are gathered over ``data``, each rank runs its experts'
+FFN slice on every gathered token (capacity from the gathered count), and
+the partial outputs are summed over ``model`` and ``data``, each rank
+keeping its own batch rows (one reduce-scatter).  The stored layout is
+the same for both (embed split over ``data``, as the reference's
+``moe_specs``), so the region's boundary moves each expert weight from
+its embed split to its FFN split (an all-to-all over ``data``), as the
+reference's ``shard_map`` boundary does.  Without such a ``data`` axis
+``expert_tp`` runs as ``fsdp_gather``, as in the reference.
 
 Routing (:func:`_route`): router logits in f32, softmax, top-k (weights
 renormalized under ``norm_topk``), then each (token, k) assignment, in the
@@ -135,17 +147,22 @@ def moe_apply(x: torch.Tensor, p, cfg: Config) -> torch.Tensor:
                       cfg).to(x.dtype)
 
 
+def _expert_tp(cfg: Config, mesh) -> bool:
+    """Whether ``expert_tp`` splits the expert FFN over ``data`` on
+    ``mesh`` (the reference's condition)."""
+    data = mesh_sizes(mesh).get("data", 1)
+    return (cfg.moe_impl == "expert_tp" and data > 1
+            and cfg.d_model % data == 0 and cfg.d_expert_ff % data == 0)
+
+
 def _moe_sharded(x, p, cfg: Config):
-    """The reference's ``shard_map`` MoE (``fsdp_gather``) on x's mesh:
-    x batch-sharded over (pod, data) where its batch divides, replicated
-    over model; the router whole; the experts split over model (where
-    their number divides).  The outputs are partial over model, and the
+    """The reference's ``shard_map`` MoE on x's mesh: x batch-sharded over
+    (pod, data) where its batch divides, replicated over model; the router
+    whole; the experts split over model (where their number divides) and,
+    under ``expert_tp``, their FFN axis over data with the tokens gathered
+    over data.  The outputs are partial over model (and data), and the
     gradients of x, the router and the experts partial where
     ``common.local_call`` makes them so."""
-    if cfg.moe_impl == "expert_tp":
-        raise NotImplementedError(
-            "moe_impl 'expert_tp' is the reference's inference layout; on a "
-            "mesh it waits for sharded serving (ROADMAP.md)")
     mesh = x.device_mesh
     names = mesh.mesh_dim_names
     model = mesh_sizes(mesh).get("model", 1)
@@ -153,18 +170,29 @@ def _moe_sharded(x, p, cfg: Config):
     e_loc = cfg.n_experts // model if has_model else cfg.n_experts
     e0 = mesh.get_local_rank("model") * e_loc if has_model else 0
     split = names.index("model") if has_model else None
+    tp = names.index("data") if _expert_tp(cfg, mesh) else None
     x_in = resolve_spec(x.shape, ("batch", None, None), mesh)
     whole = (Replicate(),) * mesh.ndim
-    expert = tuple(Shard(0) if i == split else Replicate()
-                   for i in range(mesh.ndim))
-    out = [Partial() if i == split else pl for i, pl in enumerate(x_in)]
+
+    def experts(ffn):
+        """The expert weights' placements: experts over model, the FFN
+        axis ``ffn`` over data under expert_tp."""
+        return tuple(Shard(0) if i == split else
+                     Shard(ffn) if i == tp else Replicate()
+                     for i in range(mesh.ndim))
+
+    tokens = x_in if tp is None else tuple(
+        Replicate() if i == tp else pl for i, pl in enumerate(x_in))
+    out = [Partial() if i in (split, tp) else pl
+           for i, pl in enumerate(tokens)]
 
     def local(x, router, wg, wu, wd):
         return _moe_local(x, router, wg, wu, wd, cfg, e0, e_loc)
 
-    y = local_call(local, (x.redistribute(mesh, x_in),
+    y = local_call(local, (x.redistribute(mesh, tokens),
                            p["router"].redistribute(mesh, whole),
-                           *(p[k].redistribute(mesh, expert)
-                             for k in ("wg", "wu", "wd"))), out)
-    # the sum over model (in bf16 under moe_psum_dtype "bf16")
+                           p["wg"].redistribute(mesh, experts(2)),
+                           p["wu"].redistribute(mesh, experts(2)),
+                           p["wd"].redistribute(mesh, experts(1))), out)
+    # the sum over model (and data), in bf16 under moe_psum_dtype "bf16"
     return y.redistribute(mesh, x_in).to(x.dtype)

@@ -5,6 +5,14 @@ scan through :func:`repro_torch.kernels.ops.ssd` (the SSD kernel on the
 card); :func:`ssd_chunked` is the plain chunked form in the reference's
 (B, H, L, P) layout.  Both compute h_t = exp(a_t) h_{t-1} + B_t (x) x_t,
 y_t = C_t . h_t.
+
+On a mesh the decode state is a ``DTensor`` placed by the reference's
+cache rules: ``ssm_h`` split over ``model`` by heads, ``ssm_conv`` split
+evenly along its channels, which concatenate x, B and C and so do not line
+up with the heads.  :func:`ssm_decode` makes the conv state and this
+token's conv input whole at the boundary (a few KB a layer), runs the
+recurrence on each rank's heads against its own block of ``ssm_h``, and
+hands back the new conv state split as it was.
 """
 from __future__ import annotations
 
@@ -12,11 +20,13 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models.common import (Config, P_, constrain, local_call,
-                                      rms_norm, split_last, unshard)
+                                      local_range, rms_norm, split_last,
+                                      unshard)
 
 
 def ssm_specs(cfg: Config, n_layers: int) -> Dict[str, P_]:
@@ -149,31 +159,85 @@ def ssm_apply(x, p, cfg: Config, chunk: int = None,
     return out
 
 
-def ssm_decode(x, p, cfg: Config, state: Tuple[torch.Tensor, torch.Tensor]
-               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """One-token decode. x: (B, 1, D); state = (h (B,H,N,P), conv (B,W-1,C))."""
-    bsz = x.shape[0]
-    h_state, conv_state = state
+def _ssm_step(xbc, dt, conv_state, conv_w, dt_bias, a_log, d_skip,
+              h_state, cfg: Config, heads: Tuple[int, int], out_dtype):
+    """One token's conv and recurrence on plain tensors: xbc (B, C) the
+    conv input of every channel, dt (B, H) before its softplus, the conv
+    state (B, W-1, C) and weights (W, C), the per-head parameters of every
+    head, and the SSD state h_state (B, h1 - h0, N, P) of the heads
+    ``heads`` = [h0, h1).  Returns (y (B, h1 - h0, P) in ``out_dtype``,
+    the new state in f32, the new conv state (B, W-1, C))."""
+    bsz = xbc.shape[0]
     hh, n, g, pdim = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups, cfg.ssm_head_dim
-    z, xin, bp, cp, dt = _split_proj(x, p, cfg)
-    xbc = torch.cat([xin, bp, cp], dim=-1)[:, 0]          # (B, C)
     dtype = torch.promote_types(conv_state.dtype, xbc.dtype)
     hist = torch.cat([conv_state.to(dtype), xbc[:, None].to(dtype)], dim=1)
-    conv_out = torch.einsum("bwc,wc->bc", hist, p["conv_w"].to(dtype))
+    conv_out = torch.einsum("bwc,wc->bc", hist, conv_w.to(dtype))
     new_conv = hist[:, 1:]
     xbc = F.silu(conv_out)
     xin, bp, cp = torch.split(xbc, [cfg.d_inner, g * n, g * n], dim=-1)
-    dt = F.softplus(dt[:, 0].float() + p["dt_bias"])      # (B, H)
-    a = -torch.exp(p["a_log"].float()) * dt
+    dt = F.softplus(dt.float() + dt_bias)                 # (B, H)
+    a = -torch.exp(a_log.float()) * dt
     xh = xin.reshape(bsz, hh, pdim)
     xs = xh.float() * dt[..., None]
     bg = bp.reshape(bsz, g, n).repeat_interleave(hh // g, dim=1)  # (B, H, N)
     cg = cp.reshape(bsz, g, n).repeat_interleave(hh // g, dim=1)
+    d_skip = d_skip.to(out_dtype)
+    if tuple(heads) != (0, hh):
+        h0, h1 = heads
+        a, xh, xs = a[:, h0:h1], xh[:, h0:h1], xs[:, h0:h1]
+        bg, cg, d_skip = bg[:, h0:h1], cg[:, h0:h1], d_skip[h0:h1]
     h_new = torch.exp(a)[..., None, None] * h_state.float() + \
         torch.einsum("bhn,bhp->bhnp", bg.float(), xs)
     y = torch.einsum("bhn,bhnp->bhp", cg.float(), h_new)
-    y = y.to(x.dtype) + p["d_skip"].to(x.dtype)[None, :, None] * xh
-    y = y.reshape(bsz, 1, cfg.d_inner)
+    y = y.to(out_dtype) + d_skip[None, :, None] * xh
+    return y, h_new, new_conv
+
+
+def ssm_decode(x, p, cfg: Config, state: Tuple[torch.Tensor, torch.Tensor]
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One-token decode. x: (B, 1, D); state = (h (B,H,N,P), conv (B,W-1,C)).
+    ``DTensor`` states: see the module docstring."""
+    bsz = x.shape[0]
+    h_state, conv_state = state
+    z, xin, bp, cp, dt = _split_proj(x, p, cfg)
+    per_head = (p["conv_w"], p["dt_bias"], p["a_log"], p["d_skip"])
+    if not isinstance(h_state, DTensor):
+        y, h_new, new_conv = _ssm_step(
+            torch.cat([xin, bp, cp], dim=-1)[:, 0], dt[:, 0], conv_state,
+            *per_head, h_state, cfg, (0, cfg.ssm_heads), x.dtype)
+        y = y.reshape(bsz, 1, cfg.d_inner)
+    else:
+        mesh = h_state.device_mesh
+        rows = [pl if pl.is_shard(0) else Replicate()
+                for pl in h_state.placements]
+
+        def whole(t, keep=rows):
+            """t's local tensor, whole but for the kept batch split."""
+            if not isinstance(t, DTensor):
+                return t
+            return (t if tuple(t.placements) == tuple(keep)
+                    else t.redistribute(mesh, keep)).to_local()
+
+        every = [Replicate()] * mesh.ndim
+        heads = local_range(h_state, 1)
+        y, h_new, new_conv = _ssm_step(
+            torch.cat([whole(t)[:, 0] for t in (xin, bp, cp)], dim=-1),
+            whole(dt)[:, 0], whole(conv_state),
+            *(whole(t, every) for t in per_head), h_state.to_local(), cfg,
+            heads, x.dtype)
+        # the output's channels split as the heads, the state as it was
+        y = DTensor.from_local(
+            y.reshape(y.shape[0], 1, -1), mesh,
+            [Shard(2) if pl.is_shard(1) else pl for pl in h_state.placements],
+            shape=torch.Size((bsz, 1, cfg.d_inner)),
+            stride=(cfg.d_inner, cfg.d_inner, 1))
+        h_new = DTensor.from_local(h_new, mesh, h_state.placements,
+                                   shape=h_state.shape,
+                                   stride=h_state.stride())
+        c0, c1 = local_range(conv_state, 2)
+        new_conv = DTensor.from_local(
+            new_conv[..., c0:c1], mesh, conv_state.placements,
+            shape=conv_state.shape, stride=conv_state.stride())
     y = rms_norm(y * F.silu(z), p["norm"])
     out = y @ p["wo"].to(x.dtype)
     return out, (h_new.to(h_state.dtype), new_conv)

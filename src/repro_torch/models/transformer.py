@@ -14,6 +14,13 @@ its own stack, :mod:`repro_torch.models.encdec`.  Under ``cfg.remat`` the
 full-sequence forward checkpoints each block where the reference wraps its
 scan body in ``jax.checkpoint``: every dense, moe and vlm block and every
 Mamba2 block, but not the hybrid family's shared attention block.
+
+On a mesh (``DTensor`` parameters) the decode cache is a tree of
+``DTensor``s placed by the reference's ``cache_shardings``
+(:func:`cache_logical_axes`, ``common.cache_shardings``): ``prefill``
+writes each layer's K/V and Mamba2 states into each rank's block of it
+and ``decode_step`` updates them there, in place (``common.slot``,
+``common.assign``, ``attention.write_kv``).
 """
 from __future__ import annotations
 
@@ -21,14 +28,15 @@ import dataclasses
 from typing import Dict, Iterator, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.device import resolve_device
 from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (ACT_EMBED, Config, P_, constrain,
-                                      cross_entropy, lookup, remat, rms_norm,
-                                      swiglu, take, unstack)
+from repro_torch.models.common import (ACT_EMBED, Config, P_, assign,
+                                      constrain, cross_entropy, lookup,
+                                      remat, replicating, rms_norm, slot,
+                                      swiglu, take, unstack, zero_cache)
 
 
 def _check_family(cfg: Config, what: str) -> None:
@@ -151,8 +159,8 @@ def _attn_block(x, lp, cfg: Config, positions, cache=None, idx=None):
     a_out, (k, v) = att.attn_prefill(rms_norm(x, lp["ln1"]), lp["attn"], cfg,
                                      positions)
     if cache is not None:
-        cache["k"][idx, :, :k.shape[1]] = k
-        cache["v"][idx, :, :v.shape[1]] = v
+        att.write_kv(slot(cache["k"], idx), k, 0)
+        att.write_kv(slot(cache["v"], idx), v, 0)
     h = x + a_out
     return constrain(h + _ffn(rms_norm(h, lp["ln2"]), lp, cfg), ACT_EMBED)
 
@@ -165,8 +173,8 @@ def _mamba_block(x, lp, cfg: Config, cache=None, idx=None):
     if cache is None:
         return constrain(x + res, ACT_EMBED)
     out, (h_f, conv) = res
-    cache["ssm_h"][idx] = h_f
-    cache["ssm_conv"][idx] = conv
+    assign(slot(cache["ssm_h"], idx), h_f)
+    assign(slot(cache["ssm_conv"], idx), conv)
     return constrain(x + out, ACT_EMBED)
 
 
@@ -261,15 +269,33 @@ def init_cache_specs(cfg: Config, batch: int, max_seq: int,
     return specs
 
 
+def cache_logical_axes(cfg: Config) -> Dict[str, tuple]:
+    """The reference's logical axes of each cache entry: ``k``/``v``
+    (layers, batch, kv_seq, kv_heads, head_dim); ``ssm_h`` split by heads,
+    ``ssm_conv`` by its channels (``ssm_inner``); the hybrid's Mamba2
+    entries with their (group, layer) axes."""
+    _check_family(cfg, "cache_logical_axes")
+    kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    out = {"index": ()}
+    if cfg.family != "ssm":
+        out.update(k=kv, v=kv)
+    if cfg.family == "ssm":
+        out.update(ssm_h=("layers", "batch", "ssm_heads", "ssm_state", None),
+                   ssm_conv=("layers", "batch", None, "ssm_inner"))
+    if cfg.family == "hybrid":
+        out.update(
+            ssm_h=("layers", None, "batch", "ssm_heads", "ssm_state", None),
+            ssm_conv=("layers", None, "batch", None, "ssm_inner"))
+    return out
+
+
 def init_cache(cfg: Config, batch: int, max_seq: int, dtype=torch.bfloat16,
-               device=None):
-    """A zero decode cache at position 0."""
-    device = resolve_device(device)
-    cache = {name: torch.zeros(s.shape, dtype=s.dtype, device=device)
-             for name, s in init_cache_specs(cfg, batch, max_seq, dtype).items()
-             if name != "index"}
-    cache["index"] = 0
-    return cache
+               device=None, mesh=None):
+    """A zero decode cache at position 0; on ``mesh``, each entry a
+    ``DTensor`` placed by ``common.cache_shardings``, each rank allocating
+    its own block on its device."""
+    return zero_cache(init_cache_specs(cfg, batch, max_seq, dtype),
+                      cache_logical_axes(cfg), device, mesh)
 
 
 def _attn_block_decode(x, lp, cfg: Config, ck, cv, index, positions):
@@ -285,11 +311,23 @@ def _mamba_decode(x, lp, cfg: Config, cache, idx):
     """A Mamba2 block on one token: updates its SSD state in
     ``cache["ssm_h"]`` at ``idx`` in place and returns (output, new conv
     tail)."""
+    h_slot = slot(cache["ssm_h"], idx)
     out, (h_new, conv_new) = ssm_mod.ssm_decode(
         rms_norm(x, lp["ln"]), lp["ssm"], cfg,
-        (cache["ssm_h"][idx], cache["ssm_conv"][idx]))
-    cache["ssm_h"][idx] = h_new
+        (h_slot, slot(cache["ssm_conv"], idx)))
+    assign(h_slot, h_new)
     return x + out, conv_new
+
+
+def _stacked(parts, like):
+    """The per-layer tensors ``parts`` stacked into a tensor shaped and
+    placed as ``like`` (a ``DTensor``'s from each rank's blocks)."""
+    if not isinstance(like, DTensor):
+        return torch.stack(parts).reshape(like.shape)
+    local = torch.stack([t.to_local() for t in parts]).reshape(
+        like.to_local().shape)
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              shape=like.shape, stride=like.stride())
 
 
 def decode_step(params, cfg: Config, cache, token, positions=None):
@@ -298,24 +336,27 @@ def decode_step(params, cfg: Config, cache, token, positions=None):
     ``k``, ``v`` and ``ssm_h`` are updated in place (the reference returns
     new arrays; copying them per token would move the whole cache); the
     returned dict holds the same tensors, the new ``ssm_conv`` and
-    ``index + 1``."""
+    ``index + 1``.  On a mesh the cache's entries keep their placements."""
     _check_family(cfg, "decode_step")
-    x = _embed(params, cfg, token)                      # (B, 1, D)
-    index = int(cache["index"])
-    if positions is None:
-        positions = default_positions(cfg, token.shape[0], 1, x.device) + index
-    new = {"index": index + 1}
-    convs = []
-    for kind, idx, lp, lcfg in _layers(params, cfg):
-        if kind == "attn":
-            x = _attn_block_decode(x, lp, lcfg, cache["k"][idx],
-                                   cache["v"][idx], index, positions)
-        else:
-            x, conv = _mamba_decode(x, lp, lcfg, cache, idx)
-            convs.append(conv)
-    if convs:
-        new["ssm_conv"] = torch.stack(convs).reshape(cache["ssm_conv"].shape)
-    return _logits(x, params)[:, 0], dict(cache, **new)
+    with replicating(params["embed"]):
+        x = constrain(_embed(params, cfg, token), ACT_EMBED)   # (B, 1, D)
+        index = int(cache["index"])
+        if positions is None:
+            positions = default_positions(cfg, token.shape[0], 1,
+                                          x.device) + index
+        new = {"index": index + 1}
+        convs = []
+        for kind, idx, lp, lcfg in _layers(params, cfg):
+            if kind == "attn":
+                x = _attn_block_decode(x, lp, lcfg, slot(cache["k"], idx),
+                                       slot(cache["v"], idx), index,
+                                       positions)
+            else:
+                x, conv = _mamba_decode(x, lp, lcfg, cache, idx)
+                convs.append(conv)
+        if convs:
+            new["ssm_conv"] = _stacked(convs, cache["ssm_conv"])
+        return _logits(x, params)[:, 0], dict(cache, **new)
 
 
 def prefill(params, cfg: Config, tokens, max_seq: int, positions=None,
@@ -324,16 +365,19 @@ def prefill(params, cfg: Config, tokens, max_seq: int, positions=None,
     forward that also emits each Mamba2 layer's final SSD state and conv
     tail and each attention layer's K/V (padded to ``max_seq``).  Returns
     (last-position logits (B, V), cache); the cache's tensors are in
-    ``cache_dtype``, except ``ssm_h`` (f32)."""
+    ``cache_dtype``, except ``ssm_h`` (f32).  On a mesh the cache is
+    placed by ``common.cache_shardings``."""
     _check_family(cfg, "prefill")
     b, s = tokens.shape
     if s > max_seq:
         raise ValueError(f"prefill: a {s}-token prompt does not fit a "
                          f"{max_seq}-token cache")
-    x = constrain(_embed(params, cfg, tokens), ACT_EMBED)
-    if positions is None:
-        positions = default_positions(cfg, b, s, x.device)
-    cache = init_cache(cfg, b, max_seq, cache_dtype, x.device)
-    x = _run_stack(x, params, cfg, positions, cache)
-    cache["index"] = s
-    return _logits(x[:, -1], params), cache
+    with replicating(params["embed"]):
+        x = constrain(_embed(params, cfg, tokens), ACT_EMBED)
+        if positions is None:
+            positions = default_positions(cfg, b, s, x.device)
+        cache = init_cache(cfg, b, max_seq, cache_dtype, x.device,
+                           getattr(x, "device_mesh", None))
+        x = _run_stack(x, params, cfg, positions, cache)
+        cache["index"] = s
+        return _logits(x[:, -1], params), cache

@@ -1,8 +1,8 @@
-"""Rank-side bodies of the sharded-training tests (imports torch and the
-port only, never JAX): each runs in one of the processes that
-``repro_torch.launch.mesh.spawn_ranks`` starts, joins the gloo group,
-builds its ``DeviceMesh`` and writes what rank 0 holds to ``.npz`` files
-that the test reads."""
+"""Rank-side bodies of the sharded-training and sharded-serving tests
+(imports torch and the port only, never JAX): each runs in one of the
+processes that ``repro_torch.launch.mesh.spawn_ranks`` starts, joins the
+gloo group, builds its ``DeviceMesh`` and writes what rank 0 holds to
+files that the test reads."""
 import contextlib
 import dataclasses
 import threading
@@ -241,3 +241,172 @@ def run_compressed(shape, case, psum_dir, opt_lr):
     bundle = build(f32_config(case["arch"], **case["overrides"]),
                    OptConfig(lr=opt_lr), mesh=mesh)
     step_case(bundle, case["path"], case["out"], compressed=True)
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_SEQ, SERVE_STEPS = 4, 12, 24, 4
+
+
+def serve_inputs(cfg, seed=3):
+    """Numpy inputs of a serving case: tokens (B, prompt + steps), the
+    vlm's (3, B, prompt + steps) positions, the encdec's frames."""
+    rng = np.random.default_rng(seed)
+    n = SERVE_PROMPT + SERVE_STEPS
+    out = {"tokens": rng.integers(0, cfg.vocab, (SERVE_BATCH, n)).astype(
+        np.int64)}
+    if cfg.family == "vlm":
+        out["positions"] = rng.integers(0, 64, (3, SERVE_BATCH, n)).astype(
+            np.int64)
+    if cfg.family == "encdec":
+        out["frames"] = rng.standard_normal(
+            (SERVE_BATCH, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def serve(bundle, params, inputs, start=None):
+    """Prefill SERVE_PROMPT tokens into an f32 cache of SERVE_MAX_SEQ
+    positions (the encdec: encode the frames and fill every layer's cross
+    K/V), then SERVE_STEPS decode steps teacher-forced on the next tokens;
+    on ``bundle``'s mesh when it has one.  With ``start`` (a prefilled
+    cache as numpy, ``cache_to_numpy``'s layout) the steps decode from it,
+    placed by ``cache_shardings``, instead.  Returns (the logits of the
+    prefill, if any, and of each step, the final cache's entries), whole,
+    as numpy."""
+    from repro_torch.convert import cache_from_numpy
+    from repro_torch.models import attention, encdec, transformer
+    from repro_torch.models.common import assign, slot, unstack
+    cfg, mesh = bundle.cfg, bundle.mesh
+    tokens = torch.from_numpy(inputs["tokens"])
+    pos = (torch.from_numpy(inputs["positions"]) if "positions" in inputs
+           else None)
+    logits = []
+    with torch.no_grad():
+        if start is not None:
+            cache = cache_from_numpy(start, device="cpu", shardings=(
+                None if mesh is None else
+                bundle.cache_shardings(SERVE_BATCH, SERVE_MAX_SEQ)))
+        elif cfg.family == "encdec":
+            enc = bundle.encode_step(params, torch.from_numpy(
+                inputs["frames"]))
+            cache = encdec.init_cache(cfg, SERVE_BATCH, SERVE_MAX_SEQ,
+                                      torch.float32, "cpu", mesh)
+            for i, lp in enumerate(unstack(params["dec"])):
+                k, v = attention.cross_kv(enc, lp["xattn"], cfg)
+                assign(slot(cache["xk"], i), k)
+                assign(slot(cache["xv"], i), v)
+        else:
+            first, cache = transformer.prefill(
+                params, cfg, tokens[:, :SERVE_PROMPT], SERVE_MAX_SEQ,
+                positions=None if pos is None else pos[..., :SERVE_PROMPT],
+                cache_dtype=torch.float32)
+            logits.append(first)
+        for s in range(SERVE_STEPS):
+            t = SERVE_PROMPT + s
+            out, cache = bundle.serve_step(
+                params, cache, tokens[:, t:t + 1],
+                None if pos is None else pos[..., t:t + 1])
+            logits.append(out)
+    return ([_full(x).numpy() for x in logits],
+            {k: _full(v).float().numpy() for k, v in cache.items()
+             if k != "index"})
+
+
+def write_serve(out, logits, cache):
+    """Rank 0's serving result file (see :func:`read_serve`)."""
+    if torch.distributed.get_rank() == 0:
+        flat = {f"logits/{i}": x for i, x in enumerate(logits)}
+        flat.update({f"cache/{k}": v for k, v in cache.items()})
+        np.savez(out, **flat)
+
+
+def read_serve(out):
+    """(logits list, cache dict) of a :func:`write_serve` file."""
+    with np.load(out) as z:
+        logits = [z[f"logits/{i}"] for i in range(
+            sum(k.startswith("logits/") for k in z.files))]
+        cache = {k.split("/", 1)[1]: z[k] for k in z.files
+                 if k.startswith("cache/")}
+    return logits, cache
+
+
+def serve_params(case, bundle):
+    """A case's numpy parameters onto ``bundle``'s mesh."""
+    with np.load(case["path"]) as z:
+        flat = {k.split("/", 1)[1]: z[k] for k in z.files
+                if k.startswith("params/")}
+    return bundle.shard(lm_params_from_numpy(unflatten(flat), device="cpu"))
+
+
+def run_serve(shapes, cases):
+    """Rank body: each case (``arch``, ``overrides``, ``path`` of a case
+    file, ``inputs`` file, ``mesh`` index into ``shapes``, ``out`` file,
+    optional ``start`` file of a prefilled numpy cache) served by
+    :func:`serve` on its mesh."""
+    init_distributed("cpu")
+    meshes = [make_device_mesh(s, device_type="cpu") for s in shapes]
+    for case in cases:
+        bundle = build(f32_config(case["arch"], **case["overrides"]),
+                       mesh=meshes[case["mesh"]])
+        with np.load(case["inputs"]) as z:
+            inputs = {k: z[k] for k in z.files}
+        start = None
+        if "start" in case:
+            with np.load(case["start"]) as z:
+                start = {k: z[k] for k in z.files}
+        write_serve(case["out"], *serve(bundle, serve_params(case, bundle),
+                                         inputs, start))
+
+
+def run_placements(shapes, layouts, archs, out, small_draw, seed=0):
+    """Rank body.  Rank 0 writes to ``out`` (JSON) the port's
+    ``cache_shardings(batch, 2112)`` of every architecture of ``archs`` at
+    its published shape for each (mesh index into ``shapes``, batch) of
+    ``layouts``, one entry per tensor axis: the mesh axes that split it, in
+    mesh order.  Every rank checks, on each mesh, that ``init`` equals
+    ``distribute(init(seed))`` of the one-device draw on its own shards,
+    bit for bit, for each smoke config in f32, with the draw's slicing
+    thresholds at the defaults and at ``small_draw`` = (whole, slice)
+    bytes; every rank's flag goes into ``out`` too."""
+    import json
+    from repro_torch.models import common
+    init_distributed("cpu")
+    meshes = [make_device_mesh(s, device_type="cpu") for s in shapes]
+    res = {"placements": {}, "draws": {}}
+    for m, batch in layouts:
+        names = meshes[m].mesh_dim_names
+        for arch in archs:
+            bundle = build(C.get(arch), mesh=meshes[m])
+            specs = bundle.cache_specs(batch, 2112)
+            res["placements"][f"{arch}/{m}/{batch}"] = {
+                name: [[names[i] for i, pl in enumerate(ns.placements)
+                        if pl.is_shard(dim)]
+                       for dim in range(len(specs[name].shape))]
+                for name, ns in bundle.cache_shardings(batch, 2112).items()}
+    defaults = (common.WHOLE_DRAW_BYTES, common.SLICE_DRAW_BYTES)
+    for m, mesh in enumerate(meshes):
+        for arch in archs:
+            for label, sizes in (("default", defaults),
+                                 ("sliced", small_draw)):
+                common.WHOLE_DRAW_BYTES, common.SLICE_DRAW_BYTES = sizes
+                try:
+                    one = build(f32_config(arch)).init(seed, "cpu")
+                    sharded = build(f32_config(arch), mesh=mesh)
+                    got = sharded.init(seed)
+                    want = distribute(one, sharded.param_shardings())
+                finally:
+                    common.WHOLE_DRAW_BYTES, common.SLICE_DRAW_BYTES = defaults
+                same = all(
+                    isinstance(a, torch.distributed.tensor.DTensor)
+                    and a.placements == b.placements
+                    and torch.equal(a.to_local(), b.to_local())
+                    for (_, a), (_, b) in zip(tree_leaves(got),
+                                              tree_leaves(want)))
+                flags = [None] * torch.distributed.get_world_size()
+                torch.distributed.all_gather_object(flags, bool(same))
+                res["draws"][f"{arch}/{m}/{label}"] = flags
+    if torch.distributed.get_rank() == 0:
+        with open(out, "w") as f:
+            json.dump(res, f)
