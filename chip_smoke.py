@@ -121,10 +121,18 @@ its device kernel; pad launches at both ends absorb the records the
 profiler drops at a trace's edges), or is taken again, and after three
 incomplete traces the run fails (the four-card profiles of
 ``train_mesh`` and ``serve_mesh`` are one plain trace a rank: a retake on
-one rank alone would stall the others).  ``python3 chip_smoke.py train``
+one rank alone would stall the others).  Last, the dry-run (``dryrun``
+phase): Qwen3-4B's decode cell of ``python -m repro_torch.launch.dryrun``
+at lm_serve's shape on a fake world of one rank, its roofline memory
+term beside lm_serve's read bound, and with two or more cards an NCCL
+all-reduce and all-gather sweep (bus bandwidth) beside the roofline's
+bandwidth between cards; train_mesh's
+four-card part also counts its Qwen3-4B (2, 2) step on rank 0 and holds
+the fake (2, 2) dry-run of that step to it (flops and collective bytes
+and ops per kind equal).  ``python3 chip_smoke.py train``
 (or ``kernels``, ``wrappers``, ``lm_kernels``, ``ite``, ``vqe``,
-``distributed``, ``spmd``, ``train_mesh``, ``serve_mesh``) runs those
-phases alone and prints no result line.  Each phase
+``distributed``, ``spmd``, ``train_mesh``, ``serve_mesh``, ``dryrun``)
+runs those phases alone and prints no result line.  Each phase
 prints JSON lines; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
@@ -364,11 +372,9 @@ MOE_CHECK_PROMPT = 256
 ENC_SEQ = 64
 ENC_CONTEXT = 448
 
-# Published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, bf16 on the tensor cores (dense), and HBM3 bandwidth.
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_TC_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
+# The card's peaks (f32 outside the tensor cores, dense bf16 on them, HBM3
+# bandwidth, the bandwidth between cards) are repro_torch.launch.mesh's,
+# which the roofline reads too: see card().
 # Written between the calls of a cold-L2 timing: more than the 50 MB L2.
 FLUSH_BYTES = 128 * 2**20
 # Cycles the card sleeps before each cold-L2 call (about 1 ms at 1.98 GHz).
@@ -516,6 +522,24 @@ TOL_COMPRESSED_GRAD = 0.5
 # tokens absent from its half of the batch get no gradient step).
 TOL_MESH_UPDATE_NORM = 1e-2
 
+
+# The dry-run (dryrun phase; repro_torch.launch.dryrun, each cell in a
+# subprocess of its own: a fake world cannot share a process with NCCL).
+# One card: Qwen3-4B's decode cell at lm_serve's shape, batch LM_BATCH over
+# a cache of LM_PROMPT + LM_DECODE positions, on a fake world of one rank.
+# Two or more cards: an NCCL all-reduce and all-gather sweep over every
+# visible card, SWEEP_MIB sizes, bus bandwidth by the nccl-tests convention
+# (all-reduce algbw x 2(n-1)/n, all-gather algbw x (n-1)/n); the plateau is
+# the median of the SWEEP_PLATEAU largest sizes.  train_mesh's four-card
+# part holds a fake (2, 2) dry-run of its Qwen3-4B step against the same
+# step counted on rank 0 (repro_torch.launch.cost_analysis): flops and
+# collective bytes and ops per kind equal.
+DRYRUN_ARCH = "qwen3-4b"
+SWEEP_MIB = tuple(2 ** k for k in range(11))      # 1 MiB to 1 GiB
+SWEEP_WARMUP = 5
+SWEEP_ITERS = 20
+SWEEP_PLATEAU = 3
+DRYRUN_TIMEOUT_S = 600
 
 # Sharded LM serving (serve_mesh phase).  One card: each of SERVE_MESH_ARCHS
 # at full width and depth on a (1, 1) DeviceMesh of a world-size-1 NCCL
@@ -666,6 +690,13 @@ def time_cold_ms(torch, fn, reps: int = 21) -> float:
     return statistics.median(vals)
 
 
+def card():
+    """``repro_torch.launch.mesh``: the H100's constants (``PEAK_FLOPS_F32``,
+    ``PEAK_FLOPS_BF16``, ``HBM_BW``, ``LINK_BW``)."""
+    from repro_torch.launch import mesh
+    return mesh
+
+
 def bound(nbytes: float, f32_flops: float, bf16_flops: float = 0.0,
           mixed_flops: float = 0.0):
     """(ms, "operations" or "bytes"): the larger of the bytes over the
@@ -675,9 +706,10 @@ def bound(nbytes: float, f32_flops: float, bf16_flops: float = 0.0,
     exactly, accumulating in f32); products of an f32 operand with a bf16
     one as three bf16 tensor-core products (the f32 operand split exactly
     into three bf16 pieces, ``flash_attention.split_bf16x3``)."""
-    t_ops = (f32_flops / PEAK_F32_FLOPS
-             + (bf16_flops + 3 * mixed_flops) / PEAK_BF16_TC_FLOPS)
-    t_bytes = nbytes / PEAK_BYTES
+    c = card()
+    t_ops = (f32_flops / c.PEAK_FLOPS_F32
+             + (bf16_flops + 3 * mixed_flops) / c.PEAK_FLOPS_BF16)
+    t_bytes = nbytes / c.HBM_BW
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -3204,7 +3236,7 @@ def phase_lm_serve(torch, np, arch):
         params = draw_params(torch, bundle, out)
         # a decode step reads every weight but the embedding table
         out["decode_bound_ms"] = (weight_bytes(params, skip=("embed",))
-                                  / PEAK_BYTES * 1e3)
+                                  / card().HBM_BW * 1e3)
 
         # the served run: every count starts at 0 and is read right after
         dispatch.reset_dispatch_stats()
@@ -3517,7 +3549,7 @@ def phase_lm_serve_encdec(torch, np, arch):
         out["decode_bound_ms"] = (
             weight_bytes(params, skip=("embed", "pos_dec", "enc", "enc_norm"))
             + 2 * cfg.n_layers * LM_BATCH * cfg.enc_frames * cfg.n_kv_heads
-            * cfg.d_head * 2) / PEAK_BYTES * 1e3
+            * cfg.d_head * 2) / card().HBM_BW * 1e3
 
         # the served run: every count starts at 0 and is read right after
         dispatch.reset_dispatch_stats()
@@ -4500,12 +4532,19 @@ def train_qwen(torch, np):
     n_params = sum(t.numel() for t in _leaves_of(params))
     step_s = [r["sec"] for r in recs]
     median = statistics.median(step_s[1:])
-    bound_s = 6 * n_params * tokens / PEAK_BF16_TC_FLOPS
+    from repro_torch.launch.roofline import model_flops, param_count
+    peak_flops = card().PEAK_FLOPS_BF16
+    # the roofline's 6NT: N from the config (embedding and head apart, the
+    # layers' two norms, not the final one); the leaves' own count beside it
+    bound_s = model_flops(cfg, "train", TRAIN_SEQ, batch) / peak_flops
     out.update(batch=batch, tokens_per_step=tokens, params=n_params,
+               params_roofline=param_count(cfg),
                main_s=main_s, s_per_step=median, step1_s=step_s[0],
                step_s=step_s, tokens_per_s=tokens / median,
-               bound_s=bound_s, bound="6 x params x tokens FLOPs at "
-               "989 TFLOP/s bf16", share_of_bound=bound_s / median,
+               bound_s=bound_s, bound="roofline.model_flops (6 x N x "
+               f"tokens) at {peak_flops:.4g} FLOP/s bf16",
+               bound_s_leaves=6 * n_params * tokens / peak_flops,
+               share_of_bound=bound_s / median,
                max_memory_allocated=peak,
                losses=[r["loss"] for r in recs],
                grad_norms=[r["grad_norm"] for r in recs],
@@ -5179,6 +5218,8 @@ def _mesh_rank(info):
         params, opt, tokens, donate=True))
     profs = [None] * dist.get_world_size()
     dist.all_gather_object(profs, prof)
+    # one more step, outside the timed ones, under the dry-run's counters
+    counted = _counted_step(torch, bundle, params, opt, tokens)
     loss = float(m["loss"])
     if lead:
         def norm_gaps(got):
@@ -5217,9 +5258,12 @@ def _mesh_rank(info):
                 "fault_max_update_norm_rel_gap": max(
                     g["update_norm_rel_gap"]
                     for g in fault_norm_gaps.values()),
-                "nvidia_smi": smi}
+                "counted_step": counted, "nvidia_smi": smi}
         emit(line)
         _hold_four_cards(failures, line)
+        with open(info["counted_path"], "w") as f:
+            json.dump({"counted_step": counted, "s_per_step": median,
+                       "batch": info["batch"]}, f)
     del params, opt, new, new_opt, tokens, bundle
     gc.collect()
     torch.cuda.empty_cache()
@@ -5268,6 +5312,86 @@ def _mesh_rank(info):
     check(not failures, "; ".join(failures))
 
 
+def _counted_step(torch, bundle, params, opt, tokens):
+    """One ``train_step`` on every rank under
+    ``repro_torch.launch.cost_analysis``'s counters (kernel sites dense, as
+    a differentiated step runs them anyway): this rank's counts and the
+    counted step's seconds."""
+    import dataclasses
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import cost_analysis
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with dispatch.forced_dense():
+        out, cost = cost_analysis.run(bundle.train_step, params, opt, tokens)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(dataclasses.asdict(cost), seconds=seconds)
+
+
+def dryrun_cell(arch, shape, mesh, seq, batch):
+    """One cell of ``python -m repro_torch.launch.dryrun`` on a fake world
+    of ``mesh`` (e.g. "2x2"), its shape cut to ``seq`` x ``batch``, in a
+    subprocess of its own; its record.  A cell that fails fails the run."""
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "cell.json")
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--seq", str(seq),
+             "--batch", str(batch), "--out", out],
+            env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+            text=True, timeout=DRYRUN_TIMEOUT_S)
+        check(res.returncode == 0 and os.path.exists(out),
+              f"dryrun: the {arch} {shape} cell on a fake {mesh} world "
+              f"failed (rc {res.returncode}): {res.stderr[-3000:]}")
+        with open(out) as f:
+            rec = json.load(f)[-1]
+    check(rec.get("status") == "ok", f"dryrun: {arch} {shape} on {mesh}: "
+          f"{rec}")
+    return rec
+
+
+def hold_dryrun_against_step(info, counted, failures, smi):
+    """The fake (2, 2) dry-run of the four-card Qwen3-4B step against the
+    step counted on rank 0: flops and collective bytes and ops per kind
+    equal; bytes accessed printed beside each other; the cell's roofline
+    beside the measured s/step."""
+    rec = dryrun_cell(TRAIN_ARCH, "train_4k", "2x2", TRAIN_SEQ,
+                      info["batch"])
+    step = counted["counted_step"]
+    line = {"phase": "train_mesh", "part": "dryrun_vs_step",
+            "arch": TRAIN_ARCH, "mesh": [2, 2], "batch": info["batch"],
+            "seq": TRAIN_SEQ,
+            "flops": {"dryrun": rec["per_device_flops"],
+                      "step": step["flops"]},
+            "collective_bytes": {"dryrun": rec["collective_detail"],
+                                 "step": step["collective_bytes"]},
+            "collective_counts": {"dryrun": rec["collective_counts"],
+                                  "step": step["collective_counts"]},
+            "bytes_accessed": {"dryrun": rec["per_device_bytes"],
+                               "step": step["bytes_accessed"]},
+            "arg_bytes": {"dryrun": rec["arg_bytes_per_device"],
+                          "step": step["arg_bytes"]},
+            "temp_bytes": {"dryrun": rec["temp_bytes_per_device"],
+                           "step": step["temp_bytes"]},
+            "counted_step_s": step["seconds"],
+            "dryrun_wall_s": rec["wall_s"],
+            "roofline": {k: rec[k] for k in (
+                "compute_s", "memory_s", "collective_s", "step_s",
+                "bottleneck", "roofline_frac", "model_flops")},
+            "measured_s_per_step": counted["s_per_step"],
+            "nvidia_smi": smi}
+    emit(line)
+    hold(failures, rec["per_device_flops"] == step["flops"]
+         and rec["collective_detail"] == step["collective_bytes"]
+         and rec["collective_counts"] == step["collective_counts"],
+         f"train_mesh: the fake (2, 2) dry-run does not count the card's "
+         f"step: {line}")
+
+
 def phase_train_mesh(torch, np):
     """Sharded LM training on torch.distributed: the world-size-1 DTensor
     steps on card 0, then, with MESH_CARDS cards or more, one rank per
@@ -5292,13 +5416,22 @@ def phase_train_mesh(torch, np):
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    try:
-        spawn_ranks(_mesh_rank, MESH_CARDS, args=(info,))
-    except Exception as e:  # noqa: BLE001 — recorded, then raised below
-        failures.append(f"train_mesh: the four-card ranks failed: "
-                        f"{str(e)[-2000:]}")
-    emit({"phase": "train_mesh", "part": "ranks_done",
-          "seconds": time.perf_counter() - t0})
+    with tempfile.TemporaryDirectory() as d:
+        info["counted_path"] = os.path.join(d, "counted.json")
+        try:
+            spawn_ranks(_mesh_rank, MESH_CARDS, args=(info,))
+        except Exception as e:  # noqa: BLE001 — recorded, then raised below
+            failures.append(f"train_mesh: the four-card ranks failed: "
+                            f"{str(e)[-2000:]}")
+        emit({"phase": "train_mesh", "part": "ranks_done",
+              "seconds": time.perf_counter() - t0})
+        counted = None
+        if os.path.exists(info["counted_path"]):
+            with open(info["counted_path"]) as f:
+                counted = json.load(f)
+    check(not failures, "; ".join(failures))
+    check(counted is not None, "train_mesh: rank 0 wrote no counted step")
+    hold_dryrun_against_step(info, counted, failures, nvidia_smi_line())
     check(not failures, "; ".join(failures))
 
 # ---------------------------------------------------------------------------
@@ -5661,8 +5794,9 @@ def _serve_rank(info):
                 "weight_bytes_per_card": weights, "init_s": init_s,
                 "init_max_memory_allocated_per_card": init_peak,
                 "prefill_s": prefill_s, "decode_ms_per_step": decode_ms,
-                "decode_bound_ms": (weights_read + kv_bytes) / PEAK_BYTES
-                * 1e3, "kv_bytes_read_per_step_per_card": kv_bytes,
+                "decode_bound_ms": (weights_read + kv_bytes)
+                / card().HBM_BW * 1e3,
+                "kv_bytes_read_per_step_per_card": kv_bytes,
                 "max_memory_allocated_per_card": peak,
                 "flash_launches_per_prefill_by_rank": prefill_launches,
                 "finite": finite, "prefill_vs_decode": cont,
@@ -5786,6 +5920,106 @@ def phase_serve_mesh(torch, np):
     return launches
 
 
+def _sweep_rank(out):
+    """One rank of the NCCL sweep (spawned, one per card): all-reduce and
+    all-gather of every size of SWEEP_MIB, timed on the host around
+    SWEEP_ITERS calls after SWEEP_WARMUP; rank 0 writes the rows to
+    ``out``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed
+    device = init_distributed("cuda")
+    n = dist.get_world_size()
+    rows = []
+    for mib in SWEEP_MIB:
+        nbytes = mib * 2 ** 20
+        full = torch.ones(nbytes // 4, dtype=torch.float32, device=device)
+        part = torch.ones(nbytes // 4 // n, dtype=torch.float32,
+                          device=device)
+        ops = {"all_reduce": (lambda: dist.all_reduce(full),
+                              2 * (n - 1) / n),
+               "all_gather": (lambda: dist.all_gather_into_tensor(full, part),
+                              (n - 1) / n)}
+        for name, (op, factor) in ops.items():
+            for _ in range(SWEEP_WARMUP):
+                op()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(SWEEP_ITERS):
+                op()
+            torch.cuda.synchronize()
+            sec = (time.perf_counter() - t0) / SWEEP_ITERS
+            rows.append({"op": name, "bytes": nbytes, "s": sec,
+                         "algbw": nbytes / sec,
+                         "busbw": nbytes / sec * factor})
+        del full, part
+    dist.barrier()
+    if dist.get_rank() == 0:
+        with open(out, "w") as f:
+            json.dump(rows, f)
+
+
+def nccl_sweep(torch, cards):
+    """The sweep over ``cards`` cards: rows, and the plateau of each op."""
+    from repro_torch.launch.mesh import spawn_ranks
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "sweep.json")
+        try:
+            spawn_ranks(_sweep_rank, cards, args=(out,))
+        except Exception as e:  # noqa: BLE001 — the run fails below
+            check(False, f"dryrun: the NCCL sweep over {cards} cards "
+                  f"failed: {str(e)[-2000:]}")
+        check(os.path.exists(out), "dryrun: the NCCL sweep wrote nothing")
+        with open(out) as f:
+            rows = json.load(f)
+    plateau = {}
+    for op in ("all_reduce", "all_gather"):
+        top = sorted((r for r in rows if r["op"] == op),
+                     key=lambda r: r["bytes"])[-SWEEP_PLATEAU:]
+        plateau[op] = statistics.median(r["busbw"] for r in top)
+    return rows, plateau
+
+
+def phase_dryrun(torch, np):
+    """The dry-run on the card's host (see DRYRUN_* above): the one-card
+    decode cell beside lm_serve's read bound, and with two or more cards
+    the NCCL sweep beside the roofline's bandwidth between cards."""
+    from repro_torch.configs import get
+    from repro_torch.models.model import build
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    rec = dryrun_cell(DRYRUN_ARCH, "decode_32k", "1x1",
+                      LM_PROMPT + LM_DECODE, LM_BATCH)
+    cfg = get(DRYRUN_ARCH)
+    # lm_serve's bound: a decode step reads every weight but the embedding
+    weights = weight_bytes(build(cfg).abstract_params(), skip=("embed",))
+    emit({"phase": "dryrun", "part": "decode_one_card", "arch": DRYRUN_ARCH,
+          "mesh": [1, 1], "batch": LM_BATCH,
+          "cache_positions": LM_PROMPT + LM_DECODE,
+          "roofline": {k: rec[k] for k in (
+              "per_device_flops", "per_device_bytes", "collective_bytes",
+              "collective_counts", "compute_s", "memory_s", "collective_s",
+              "bottleneck", "arg_bytes_per_device", "temp_bytes_per_device")},
+          "memory_ms": rec["memory_s"] * 1e3,
+          "decode_bound_ms": weights / card().HBM_BW * 1e3,
+          "decode_bound_bytes": weights, "dryrun_wall_s": rec["wall_s"],
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"phase": "dryrun", "part": "nccl_sweep",
+              "skipped": f"{cards} card visible; the sweep needs two"})
+        return
+    t0 = time.perf_counter()
+    rows, plateau = nccl_sweep(torch, cards)
+    emit({"phase": "dryrun", "part": "nccl_sweep", "cards": cards,
+          "rows": rows, "busbw_plateau": plateau,
+          "link_bw_constant": card().LINK_BW,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    check(all(math.isfinite(r["busbw"]) and r["busbw"] > 0 for r in rows),
+          f"dryrun: NCCL sweep rows {rows}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5840,7 +6074,8 @@ def main() -> int:
                       "spmd": (phase_spmd, torch, np),
                       "train": (phase_train, torch, np),
                       "train_mesh": (phase_train_mesh, torch, np),
-                      "serve_mesh": (phase_serve_mesh, torch, np)}
+                      "serve_mesh": (phase_serve_mesh, torch, np),
+                      "dryrun": (phase_dryrun, torch, np)}
         unknown = [name for name in only if name not in standalone]
         if unknown:
             print(f"chip_smoke: unknown phases {unknown}; standalone "
@@ -5903,6 +6138,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         by_path["serve_mesh"] = timed("serve_mesh", phase_serve_mesh, torch,
                                       np)
+        timed("dryrun", phase_dryrun, torch, np)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1

@@ -13,6 +13,14 @@ Two kinds of mesh live here, for two kinds of program:
   program of sharded LM training, where each rank runs the same step on
   its shards.  :func:`init_distributed` joins the group, and
   :func:`spawn_ranks` starts one process per rank on this host.
+* :func:`make_production_mesh` (and :func:`make_fake_mesh` for any
+  shape) returns a ``DeviceMesh`` of 256 or 512 ranks of a *fake* process
+  group with this process as rank 0: collectives move nothing, so the
+  dry-run (:mod:`repro_torch.launch.dryrun`) runs one rank's step of a
+  production mesh on fake tensors.
+
+It also holds the card's constants that the roofline
+(:mod:`repro_torch.launch.roofline`) and ``chip_smoke.py``'s bounds read.
 
 The default devices are every visible CUDA device; without a card a mesh
 needs ``devices=`` (the CPU tests pass ``("cpu",)``).  Unlike a JAX mesh,
@@ -179,6 +187,61 @@ def make_device_mesh(shape, device_type: str = "cuda"):
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
+# The fake world's size: the reference's multi-pod mesh, so that every
+# mesh of the dry-run and its tests is a block of one world.
+FAKE_WORLD = 512
+
+
+def make_fake_mesh(shape, device_type: str = None):
+    """A ``DeviceMesh`` of ``shape`` (the reference's axis names,
+    :func:`mesh_axes`) over ranks ``0 .. prod(shape) - 1`` of a fake
+    process group, this process rank 0
+    (``torch.testing._internal.distributed.fake_pg``: every collective
+    returns at once and moves nothing).  The world has
+    ``max(FAKE_WORLD, prod(shape))`` ranks and is joined once: every mesh
+    is a block of it, so a mesh of a shape made before stays valid (a
+    world replaced under ``DTensor``'s caches would leave them holding
+    groups that no longer exist).
+
+    The mesh is ``cuda`` wherever torch sees a card, so that ``DTensor``
+    takes the collectives NCCL runs (its all-to-all included), else
+    ``cpu`` (see :mod:`repro_torch.launch.cost_analysis` for how the
+    ``cpu`` mesh's all-to-all fallback is counted).  A real (NCCL or
+    gloo) group in this process raises: the fake world cannot share a
+    process with it."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape = tuple(int(s) for s in shape)
+    cells = int(np.prod(shape))
+    if dist.is_initialized():
+        backend = dist.get_backend()
+        if backend != "fake":
+            raise RuntimeError(
+                f"a {backend} process group is already joined in this "
+                f"process: a fake world cannot share a process with it "
+                f"(run the dry-run in a process of its own)")
+        if dist.get_world_size() < cells:
+            raise RuntimeError(
+                f"a {'x'.join(map(str, shape))} mesh needs {cells} ranks; "
+                f"the fake world of this process has "
+                f"{dist.get_world_size()}")
+    else:
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=max(FAKE_WORLD, cells))
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    return DeviceMesh(device_type, torch.arange(cells).reshape(shape),
+                      mesh_dim_names=mesh_axes(shape))
+
+
+def make_production_mesh(multi_pod: bool = False, device_type: str = None):
+    """The reference's production mesh on a fake world: (data 16, model
+    16), 256 ranks, or (pod 2, data 16, model 16), 512 ranks (see
+    :func:`make_fake_mesh`)."""
+    return make_fake_mesh((2, 16, 16) if multi_pod else (16, 16),
+                          device_type)
+
+
 def _free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
@@ -212,3 +275,20 @@ def spawn_ranks(fn: Callable, world: int, args: tuple = (),
     mp.start_processes(_rank_main, args=(world, _free_port(), threads, fn,
                                          args),
                        nprocs=world, start_method="spawn")
+
+
+# ---------------------------------------------------------------------------
+# The card's constants (NVIDIA H100 SXM5 80 GB), per card
+# ---------------------------------------------------------------------------
+
+# From the H100 SXM data sheet: f32 outside the tensor cores, dense bf16
+# on them, and HBM3 bandwidth (chip_smoke.py's bounds read them too)
+PEAK_FLOPS_F32 = 67e12
+PEAK_FLOPS_BF16 = 989e12
+HBM_BW = 3.35e12
+# Bandwidth between cards for the roofline's collective term: the NCCL
+# all-reduce bus bandwidth plateau (nccl-tests' convention, 256 MiB to
+# 1 GiB) that chip_smoke.py's dryrun phase measured over four H100 80GB
+# HBM3 cards at 700.00 W on one NVLink host (PERF.md); the data sheet's
+# NVLink 4 figure is 450e9 B/s a direction.
+LINK_BW = 336.9e9

@@ -626,9 +626,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
         raise ValueError(f"apply_mrope: sections {tuple(sections)} sum to "
                          f"{sum(sections)}, not half the head dimension "
                          f"{half}")
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))          # (half,)
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)  # (half,)
     pos = positions.float()[sec_id]                         # (half, B, S)
     return _rotate(x, pos.movedim(0, -1) * _rope_freqs(half, theta, x.device))
 

@@ -22,11 +22,15 @@ the parameters alone (``common.init_params`` with shardings), the decode
 cache is placed by :meth:`ModelBundle.cache_shardings` (the reference's
 rules and fallbacks), and ``prefill_step``, ``encode_step`` and
 ``serve_step`` take and return ``DTensor`` parameters and caches.
+
+:data:`SHAPES` are the reference's input shapes and
+:meth:`ModelBundle.input_specs` their stand-ins (``meta`` tensors) and
+placements, which the dry-run (:mod:`repro_torch.launch.dryrun`) runs.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -41,6 +45,19 @@ from repro_torch.models.common import (Config, NamedSharding, batch_axes,
                                       param_shardings, replicating,
                                       tree_leaves)
 from repro_torch.optim.adamw import OptConfig, adamw_init, adamw_update
+
+
+# The reference's input shapes: (seq_len, global_batch, kind)
+SHAPES: Dict[str, Tuple[int, int, str]] = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+    # reduced variants for smoke tests
+    "smoke_train": (64, 2, "train"),
+    "smoke_prefill": (64, 2, "prefill"),
+    "smoke_decode": (64, 2, "decode"),
+}
 
 
 def _with_leaves(tree, leaves: List[torch.Tensor]):
@@ -289,6 +306,66 @@ class ModelBundle:
         return cache_shardings(self.cache_specs(batch, max_seq),
                                self._mod.cache_logical_axes(self.cfg),
                                self._need_mesh())
+
+    def input_specs(self, shape_name: str, seq: Optional[int] = None,
+                    batch: Optional[int] = None) -> Dict[str, Any]:
+        """Stand-ins (``meta`` tensors, nothing allocated) and placements
+        (:class:`NamedSharding`) of the inputs of one of :data:`SHAPES`,
+        under the reference's keys: ``kind``; train: ``batch`` and
+        ``batch_shardings`` (``tokens``, ``labels``, the vlm's (3, B, S)
+        ``positions`` split on axis 1, the encdec's ``frames`` on axis 0);
+        prefill: ``tokens`` and ``tokens_sharding``, or the encdec's
+        ``frames`` and ``frames_sharding``; decode: ``cache`` and
+        ``cache_shardings`` (``index`` a scalar int32, as the reference's),
+        ``token`` and ``token_sharding``, the vlm's (3, B, 1)
+        ``positions`` (no placement: the reference gives it none).  The
+        batch placement falls back as :meth:`batch_sharding` does
+        (``long_500k``'s batch of 1 is whole).  ``seq`` and ``batch``
+        replace the shape's own (a cell cut to size)."""
+        s0, b0, kind = SHAPES[shape_name]
+        seq, gbatch = seq or s0, batch or b0
+        cfg = self.cfg
+
+        def stand_in(shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        bspec = self.batch_sharding(gbatch)
+        mesh = bspec.mesh
+
+        def on_axis(axis):
+            return NamedSharding(mesh, tuple(
+                Shard(axis) if p.is_shard() else p for p in bspec.placements))
+
+        out: Dict[str, Any] = {"kind": kind}
+        if kind == "train":
+            out["batch"] = {"tokens": stand_in((gbatch, seq)),
+                            "labels": stand_in((gbatch, seq))}
+            out["batch_shardings"] = {"tokens": bspec, "labels": bspec}
+            if cfg.family == "encdec":
+                out["batch"]["frames"] = stand_in(
+                    (gbatch, cfg.enc_frames, cfg.d_model), torch.float32)
+                out["batch_shardings"]["frames"] = on_axis(0)
+            elif cfg.family == "vlm":
+                out["batch"]["positions"] = stand_in((3, gbatch, seq))
+                out["batch_shardings"]["positions"] = on_axis(1)
+        elif kind == "prefill":
+            if cfg.family == "encdec":
+                out["frames"] = stand_in((gbatch, seq, cfg.d_model),
+                                         torch.float32)
+                out["frames_sharding"] = on_axis(0)
+            else:
+                out["tokens"] = stand_in((gbatch, seq))
+                out["tokens_sharding"] = bspec
+        else:
+            out["cache"] = {name: stand_in(spec.shape, spec.dtype)
+                            for name, spec in self.cache_specs(
+                                gbatch, seq).items()}
+            out["cache_shardings"] = self.cache_shardings(gbatch, seq)
+            out["token"] = stand_in((gbatch, 1))
+            out["token_sharding"] = bspec
+            if cfg.family == "vlm":
+                out["positions"] = stand_in((3, gbatch, 1))
+        return out
 
     def init_cache(self, batch: int, max_seq: int, device=None):
         """A zero cache: on one device, or on the mesh placed by

@@ -14,6 +14,14 @@ parameters, saved by the four ranks, restore onto one device bit for bit.
 qwen2-vl-72b's step with ``microbatches=2`` (its (3, B, S) positions split
 on their axis 1) is held to the one-device step with two microbatches.
 
+The dry-run counts what the ranks run: for zamba2-2.7b (attention, Mamba2
+blocks and all-to-alls in one step) the four ranks count one more
+``train_step`` with ``launch.cost_analysis``, and the same step of a fake
+(2, 2) world in this process (``launch.dryrun``, fake tensors) must give
+rank 0's flops, collective bytes and ops per kind and argument bytes
+exactly; its bytes accessed and temporaries are printed beside rank 0's
+(a real collective's output lives until its wait).
+
 The two MoE architectures run here at capacity factor 16, where no
 assignment drops: an expert's capacity comes from the tokens of one data
 shard (the reference's semantics), so at the default 1.25 a data-sharded
@@ -44,6 +52,7 @@ LR = 1e-2
 LOSS_TOL, GRAD_TOL, PARAM_TOL = 1e-5, 1e-4, 1e-5
 MOE = ("qwen3-moe-30b-a3b", "arctic-480b")
 MICRO_ARCH = "qwen2-vl-72b"
+COUNTED = ("zamba2-2.7b",)
 # Without JAX (a host with the port alone) the reference's halves skip
 HAVE_JAX = importlib.util.find_spec("jax") is not None
 
@@ -135,18 +144,39 @@ def mesh_2x2(tmp_path_factory):
             params = lm_params_to_numpy(build(cfg).init(0, "cpu"))
         if arch == MICRO_ARCH:
             case["microbatches"] = 2
+        if arch in COUNTED:
+            case["count"] = True
         inputs[arch] = (cfg, params, ranks.adamw_state(params), _batch(cfg))
         ranks.write_case(case["path"], *inputs[arch][1:])
         cases.append(case)
     join = ranks.spawn_in_background(ranks.run_cases, 4,
                                      ((2, 2), cases, LR))
     single = {arch: _single(*args) for arch, args in inputs.items()}
+    single["fake"] = {arch: _fake_world_cell(arch) for arch in COUNTED}
     single["micro"] = _single(*inputs[MICRO_ARCH], microbatches=2)
     reference = (reference_step(*inputs["smollm-360m"][2:]) if HAVE_JAX
                  else None)
     join()
     got = {c["arch"]: ranks.read_out(c["out"]) for c in cases}
+    for c in cases:
+        if c.get("count"):
+            got[c["arch"]]["cost_path"] = c["out"] + ".cost.json"
     return got, single, reference, tmp / "ckpt"
+
+
+def _fake_world_cell(arch):
+    """The dry-run's row of the cases' step (B x S tokens, f32 smoke
+    config) on a fake (2, 2) world in this process."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    dryrun._quiet_dtensor_warnings()
+    try:
+        return dryrun.run_lm_cell(
+            arch, "smoke_train", False, verbose=False, mesh_shape=(2, 2),
+            seq=S, batch=B, config=ranks.f32_config(arch, **_overrides(arch)))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _check(got, loss, grads, new):
@@ -193,3 +223,24 @@ def test_2x2_checkpoint_restores_on_one_device_bit_for_bit(mesh_2x2):
         t = restored["params/" + "/".join(k)]
         assert t.device.type == "cpu" and t.dtype == torch.float32
         np.testing.assert_array_equal(t.numpy(), v)
+
+
+@pytest.mark.parametrize("arch", COUNTED)
+def test_2x2_fake_world_counts_equal_rank_0(mesh_2x2, arch):
+    import json
+    _, single, _, _ = mesh_2x2
+    with open(mesh_2x2[0][arch]["cost_path"]) as f:
+        real = json.load(f)
+    fake = single["fake"][arch]
+    assert fake["status"] == "ok"
+    assert fake["per_device_flops"] == real["flops"] > 0
+    assert fake["collective_detail"] == real["collective_bytes"]
+    assert fake["collective_counts"] == real["collective_counts"]
+    assert fake["arg_bytes_per_device"] == real["arg_bytes"]
+    # printed, not held: a real collective's output lives until its wait
+    print(f"{arch}: bytes accessed fake {fake['per_device_bytes']:.0f}, "
+          f"rank 0 {real['bytes_accessed']:.0f}; temporaries fake "
+          f"{fake['temp_bytes_per_device']:.0f}, rank 0 "
+          f"{real['temp_bytes']:.0f}")
+    if arch == "zamba2-2.7b":
+        assert real["collective_counts"]["all-to-all"] > 0

@@ -155,7 +155,7 @@ def planted(fault):
 
 
 def step_case(bundle, path, out, compressed=False, checkpoint=None,
-              microbatches=1):
+              microbatches=1, count=False):
     """One ``value_and_grad`` and one ``train_step`` (and, if
     ``compressed``, one ``train_step_compressed``, then one with each of
     :data:`PLANTED_FAULTS`) of a case on ``bundle``'s mesh, written by
@@ -163,7 +163,10 @@ def step_case(bundle, path, out, compressed=False, checkpoint=None,
     parameters, whole (``closs``, ``cnew``, the new first moments ``cmu``
     and ``mu`` of both steps, the new residuals ``err``; ``<fault>_cnew``
     and ``<fault>_cmu`` of the faulted steps).  With ``checkpoint`` (a
-    directory) every rank saves the new parameters there as step 1."""
+    directory) every rank saves the new parameters there as step 1.  With
+    ``count``, one more ``train_step`` runs under
+    ``repro_torch.launch.cost_analysis``'s counters and rank 0 writes its
+    counts to ``out + ".cost.json"``."""
     params, opt, batch = load_case(path)
     params = bundle.shard(lm_params_from_numpy(params, device="cpu"))
     opt = distribute(opt_state_from_numpy(opt, device="cpu"),
@@ -197,6 +200,21 @@ def step_case(bundle, path, out, compressed=False, checkpoint=None,
         CheckpointManager(checkpoint).save(1, {"params": new}, blocking=True)
     if torch.distributed.get_rank() == 0:
         np.savez(out, **res)
+    if count:
+        write_cost(out + ".cost.json", bundle.train_step, params, opt, batch)
+
+
+def write_cost(path, fn, *args):
+    """``fn(*args)`` once under ``cost_analysis``'s counters; rank 0
+    writes the counts to ``path`` (JSON)."""
+    import json
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import cost_analysis
+    with dispatch.forced_dense():
+        _, cost = cost_analysis.run(fn, *args)
+    if torch.distributed.get_rank() == 0:
+        with open(path, "w") as f:
+            json.dump(dataclasses.asdict(cost), f)
 
 
 def run_cases(shape, cases, opt_lr):
@@ -210,7 +228,7 @@ def run_cases(shape, cases, opt_lr):
                        OptConfig(lr=opt_lr), mesh=mesh)
         step_case(bundle, case["path"], case["out"],
                   case.get("compressed", False), case.get("checkpoint"),
-                  case.get("microbatches", 1))
+                  case.get("microbatches", 1), case.get("count", False))
 
 
 def psum_inputs(pod: int, cell: int, shape=(3, 50)):
